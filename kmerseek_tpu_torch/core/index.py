@@ -1,0 +1,474 @@
+"""ProteomeIndex — the central index, sketched on the device, stored
+columnar (counterpart of ``kmerseek_tpu/core/index.py``).
+
+* per-protein sketches as one concatenated uint64 ``mins`` array with
+  CSR ``offsets`` and int64 ``abundances`` (host);
+* the combined minhash as a sorted unique hash array + summed
+  abundances;
+* the inverted postings for search (``ops.inverted``).
+
+Build: stream FASTA record batches → host validate/resolve →
+fixed-grid padded batches → the device sketch stage
+(``ops.sketch.sorted_window_hashes``, whose hash kernel is
+``csrc/masked_sketch.cu``) → host run-length dedup into Signatures.
+
+Persistence is the JAX package's ``.ksx`` format 2: raw ``.npy``
+members, ``manifest.json``, ``metadata.json`` and ``hints.json``, so an
+index written by either package loads in the other.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.sketch_np import merge_sketches_np
+from ..utils.device import resolve_device
+from .alphabet import validate_resolve_batch
+from .fasta import iter_record_batches, pack_fixed_grid, prefetch
+from .signature import Signature
+
+INDEX_FORMAT_VERSION = 2
+INDEX_SUFFIX = "kmerseek.ksx"
+
+
+def generate_index_path(fasta: str, moltype: str, ksize: int, scaled: int) -> str:
+    return f"{fasta}.{moltype}.k{ksize}.scaled{scaled}.{INDEX_SUFFIX}"
+
+
+@dataclass
+class IndexConfig:
+    """Validated sketch parameters."""
+
+    ksize: int = 24
+    scaled: int = 5
+    moltype: str = "hp"
+
+    def __post_init__(self):
+        if not 1 <= self.ksize <= 100:
+            raise ValueError(f"ksize must be in 1..=100, got {self.ksize}")
+        if not 1 <= self.scaled <= 10000:
+            raise ValueError(f"scaled must be in 1..=10000, got {self.scaled}")
+        if self.moltype not in ("protein", "dayhoff", "hp"):
+            raise ValueError(
+                f"Invalid moltype: {self.moltype}, only 'protein', 'hp', or "
+                "'dayhoff' are supported"
+            )
+
+
+def sketch_batch_signatures(
+    names: List[str],
+    resolved: Sequence[bytes],
+    config: IndexConfig,
+    *,
+    device: torch.device,
+    filename: str = "",
+) -> List[Signature]:
+    """Device-sketch one batch of validated sequences into Signatures:
+    fixed-grid packing → the device sketch stage → host run-length
+    dedup. An under-provisioned capacity is retried with twice the
+    slots."""
+    from ..ops.sketch import finalize_sorted_np, sketch_capacity, sorted_window_hashes
+
+    k, scaled, moltype = config.ksize, config.scaled, config.moltype
+    batch_sigs: List = [None] * len(names)
+    for arr, lens, idxs in pack_fixed_grid(resolved, min_len=max(k + 1, 256)):
+        cap = sketch_capacity(arr.shape[1], k, scaled)
+        cap = max((cap + 127) // 128 * 128, 128)
+        seqs = torch.from_numpy(arr).to(device)
+        lengths = torch.from_numpy(lens).to(device)
+        while True:
+            out = sorted_window_hashes(
+                seqs, lengths, k=k, scaled=scaled, moltype=moltype, capacity=cap
+            )
+            if int(out[2].max().item()) <= cap:
+                break
+            cap *= 2  # rare under-provision: retry with more slots
+        mins_list, ab_list = finalize_sorted_np(*out)
+        for r, i in enumerate(idxs):
+            batch_sigs[i] = Signature(
+                name=names[i],
+                mins=mins_list[r],
+                abundances=ab_list[r],
+                ksize=k,
+                scaled=scaled,
+                moltype=moltype,
+                filename=filename,
+            )
+    return batch_sigs
+
+
+class ProteomeIndex:
+    """Sketches + combined minhash + inverted postings for one proteome.
+
+    ``device`` is where the sketch ran and where search runs its device
+    stages; host arrays are numpy."""
+
+    def __init__(
+        self,
+        config: IndexConfig,
+        names: List[str],
+        mins: np.ndarray,
+        abundances: np.ndarray,
+        offsets: np.ndarray,
+        source_fasta: str = "",
+        sequences: Optional[List[bytes]] = None,
+        device=None,
+    ):
+        self.config = config
+        self.names = list(names)
+        self.mins = np.asarray(mins, dtype=np.uint64)
+        self.abundances = np.asarray(abundances, dtype=np.int64)
+        self.offsets = np.asarray(offsets, dtype=np.int64)  # (T+1,)
+        self.source_fasta = source_fasta
+        self.sequences = sequences
+        self.device = resolve_device(device)
+        self._combined = None
+        self._inverted = None
+        self._md5s = None
+        self._name_ranks = None
+        self._md5_array = None
+        self._names_array = None
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_arrays(
+        cls, config: IndexConfig, names, mins, abundances, offsets, *, device=None
+    ) -> "ProteomeIndex":
+        """From the JAX package's CSR arrays (numpy)."""
+        return cls(config, names, mins, abundances, offsets, device=device)
+
+    @classmethod
+    def from_signatures(
+        cls,
+        signatures: Sequence[Signature],
+        config: Optional[IndexConfig] = None,
+        source_fasta: str = "",
+        sequences: Optional[List[bytes]] = None,
+        device=None,
+    ) -> "ProteomeIndex":
+        if not signatures:
+            raise ValueError("cannot build an index from zero signatures")
+        sig0 = signatures[0]
+        config = config or IndexConfig(sig0.ksize, sig0.scaled, sig0.moltype)
+        offsets = np.zeros(len(signatures) + 1, np.int64)
+        np.cumsum([len(s) for s in signatures], out=offsets[1:])
+        mins = np.concatenate([s.mins for s in signatures])
+        ab = np.concatenate([s.abundances for s in signatures])
+        return cls(
+            config, [s.name for s in signatures], mins, ab, offsets,
+            source_fasta, sequences, device=device,
+        )
+
+    @classmethod
+    def build(
+        cls,
+        fasta: str,
+        config: Optional[IndexConfig] = None,
+        *,
+        batch_size: Optional[int] = None,
+        device=None,
+    ) -> "ProteomeIndex":
+        """Sketch every record of ``fasta`` on ``device`` (default: the
+        CUDA device; without one this raises unless ``device="cpu"``)."""
+        from ..utils.config import get_default_performance_config
+
+        device = resolve_device(device)
+        config = config or IndexConfig()
+        perf = get_default_performance_config()
+        if batch_size is None:
+            batch_size = perf.batch_size
+        progress_interval = perf.progress_interval if perf.enable_metrics else 0
+        signatures: List[Signature] = []
+        n_done = 0
+        # background-thread ingest: reading batch i+1 overlaps the
+        # device sketch of batch i
+        for records in prefetch(iter_record_batches(fasta, batch_size)):
+            names = [r.name for r in records]
+            resolved = validate_resolve_batch([r.seq for r in records], names)
+            signatures.extend(
+                sketch_batch_signatures(
+                    names, resolved, config, device=device,
+                    filename=os.path.abspath(fasta),
+                )
+            )
+            n_done += len(records)
+            if progress_interval and n_done % progress_interval == 0:
+                from ..utils.logging import logger
+
+                logger.info("processed %d sequences", n_done)
+        return cls.from_signatures(
+            signatures, config, source_fasta=fasta, device=device,
+        )
+
+    # ------------------------------------------------------------------
+    # views
+    # ------------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def signature(self, i: int) -> Signature:
+        lo, hi = self.offsets[i], self.offsets[i + 1]
+        return Signature(
+            name=self.names[i],
+            mins=self.mins[lo:hi],
+            abundances=self.abundances[lo:hi],
+            ksize=self.config.ksize,
+            scaled=self.config.scaled,
+            moltype=self.config.moltype,
+            filename=self.source_fasta,
+        )
+
+    def signatures(self) -> List[Signature]:
+        return [self.signature(i) for i in range(len(self))]
+
+    @property
+    def counts(self) -> np.ndarray:
+        return np.diff(self.offsets).astype(np.int32)
+
+    @property
+    def combined(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Union of all sketches: (sorted unique hashes, summed abundances)."""
+        if self._combined is None:
+            self._combined = merge_sketches_np([self.mins], [self.abundances])
+        return self._combined
+
+    def md5_for(self, i: int) -> str:
+        """Sourmash md5 of signature ``i`` (cached; persisted in ``.ksx``)."""
+        if self._md5s is None:
+            self._md5s = [None] * len(self)
+        if self._md5s[i] is None:
+            self._md5s[i] = self.signature(i).md5sum
+        return self._md5s[i]
+
+    @property
+    def md5_array(self) -> np.ndarray:
+        if self._md5_array is None:
+            self._md5_array = np.array(
+                [self.md5_for(i) for i in range(len(self))], object
+            )
+        return self._md5_array
+
+    @property
+    def names_array(self) -> np.ndarray:
+        if self._names_array is None:
+            self._names_array = np.array(self.names, object)
+        return self._names_array
+
+    @property
+    def name_ranks(self) -> np.ndarray:
+        """Dense lexicographic rank of each signature's name (equal names
+        share a rank): search output sorts by integer ranks."""
+        if self._name_ranks is None:
+            arr = np.asarray(self.names)
+            order = np.argsort(arr, kind="stable")
+            snames = arr[order]
+            dense = np.cumsum(
+                np.concatenate([[0], (snames[1:] != snames[:-1]).astype(np.int64)])
+            ) if len(snames) else np.zeros(0, np.int64)
+            ranks = np.empty(len(arr), np.int64)
+            ranks[order] = dense
+            self._name_ranks = ranks
+        return self._name_ranks
+
+    @property
+    def inverted(self):
+        """Globally sorted postings, built once on ``self.device``
+        (``ops.inverted.build_inverted``) or loaded from ``.ksx``."""
+        if self._inverted is None:
+            from ..ops.inverted import build_inverted
+
+            self._inverted = build_inverted(
+                self.mins, self.abundances, self.offsets, self.device
+            )
+        return self._inverted
+
+    def dense_device_keys(self, pad_multiple: int = 128):
+        """Padded ``(T, S)`` int64 sketch keys on ``self.device`` and the
+        ``(T, S)`` validity mask; S = max sketch size rounded up to
+        ``pad_multiple``, padding slots hold the u64::MAX sentinel."""
+        T = len(self)
+        counts = self.counts
+        S = int(counts.max(initial=1))
+        S = max(((S + pad_multiple - 1) // pad_multiple) * pad_multiple, pad_multiple)
+        keys = np.full((T, S), -1, np.int64)
+        rows = np.repeat(np.arange(T), counts)
+        cols = np.arange(len(self.mins)) - np.repeat(self.offsets[:-1], counts)
+        keys[rows, cols] = self.mins.view(np.int64)
+        valid = np.arange(S)[None, :] < counts[:, None]
+        return (
+            torch.from_numpy(keys).to(self.device),
+            torch.from_numpy(valid).to(self.device),
+        )
+
+    # ------------------------------------------------------------------
+    # persistence (.ksx format 2, shared with the JAX package)
+    # ------------------------------------------------------------------
+
+    def save(self, path: str) -> str:
+        os.makedirs(path, exist_ok=True)
+
+        def _write(item):
+            # temp + os.replace: atomic, and re-saving a loaded index
+            # into its own directory never truncates a live memmap
+            name, arr = item
+            fp = os.path.join(path, f"{name}.npy")
+            tmp = f"{fp}.tmp-{os.getpid()}"
+            with open(tmp, "wb") as f:
+                np.save(f, np.ascontiguousarray(arr))
+            os.replace(tmp, fp)
+            return name, {
+                "bytes": os.path.getsize(fp),
+                "len": int(len(arr)),
+                "dtype": str(np.asarray(arr).dtype),
+            }
+
+        inv = self.inverted.with_buckets()
+        members = {
+            "mins": self.mins,
+            "abundances": self.abundances,
+            "offsets": self.offsets,
+            "inv_g_hi": inv.g_hi,
+            "inv_g_lo": inv.g_lo,
+            "inv_tid": inv.tid,
+            "inv_ab": inv.ab,
+            "inv_bucket_starts": inv.bucket_starts,
+        }
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            futures = [pool.submit(_write, it) for it in members.items()]
+            sums = {
+                "mins": int(self.mins.sum(dtype=np.uint64)),
+                "abundances": int(self.abundances.sum(dtype=np.int64)),
+                "inv_g64": int(inv.g64().sum(dtype=np.uint64)),
+                "inv_ab": int(inv.ab.sum(dtype=np.int64)),
+            }
+            meta = {
+                "format_version": INDEX_FORMAT_VERSION,
+                "ksize": self.config.ksize,
+                "scaled": self.config.scaled,
+                "moltype": self.config.moltype,
+                "n_signatures": len(self),
+                "source_fasta": self.source_fasta,
+                "names": self.names,
+                "has_sequences": self.sequences is not None,
+                "md5s": [self.md5_for(i) for i in range(len(self))],
+            }
+            with open(os.path.join(path, "metadata.json"), "w") as f:
+                json.dump(meta, f)
+            files = dict(fut.result() for fut in futures)
+        manifest = {
+            "inverted_shape": [
+                int(inv.n_targets),
+                int(inv.max_run),
+                int(inv.max_span),
+                int(inv.bucket_shift),
+            ],
+            "files": files,
+            "sums": sums,
+        }
+        # the manifest lands last (atomic rename): a crashed half-save
+        # leaves no manifest describing unwritten files
+        mtmp = os.path.join(path, "manifest.json.tmp")
+        with open(mtmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(mtmp, os.path.join(path, "manifest.json"))
+        # no learned sparse-engine hints in this package: written empty
+        # so a previous index's hints never survive a re-save
+        with open(os.path.join(path, "hints.json"), "w") as f:
+            json.dump({}, f)
+        if self.sequences is not None:
+            seq_off = np.zeros(len(self.sequences) + 1, np.int64)
+            np.cumsum([len(s) for s in self.sequences], out=seq_off[1:])
+            np.savez_compressed(
+                os.path.join(path, "sequences.npz"),
+                data=np.frombuffer(b"".join(self.sequences), np.uint8),
+                offsets=seq_off,
+            )
+        return path
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "ProteomeIndex":
+        """Open a format-2 ``.ksx`` directory (members are mmapped)."""
+        from ..ops.inverted import InvertedIndex
+
+        meta_path = os.path.join(path, "metadata.json")
+        manifest_path = os.path.join(path, "manifest.json")
+        if not os.path.exists(meta_path):
+            from ..utils.errors import NoSavedState
+
+            raise NoSavedState(f"no saved index at {path}")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta["format_version"] > INDEX_FORMAT_VERSION:
+            raise ValueError(f"index format {meta['format_version']} too new")
+        if not os.path.exists(manifest_path):
+            raise ValueError(f"{path}: format-1 .ksx (no manifest) is not supported")
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        arrs = {}
+        for name, rec in manifest["files"].items():
+            fp = os.path.join(path, f"{name}.npy")
+            if not os.path.exists(fp) or os.path.getsize(fp) != rec["bytes"]:
+                raise ValueError(
+                    f"corrupt .ksx: {name}.npy missing or size-mismatched "
+                    f"vs manifest at {path}"
+                )
+            arrs[name] = np.load(fp, mmap_mode="r")
+            if len(arrs[name]) != rec["len"]:
+                raise ValueError(f"corrupt .ksx: {name}.npy length mismatch at {path}")
+        if (
+            int(arrs["offsets"][-1]) != len(arrs["mins"])
+            or len(arrs["inv_g_hi"]) != len(arrs["mins"])
+            or len(arrs["offsets"]) != len(meta["names"]) + 1
+        ):
+            raise ValueError(f"corrupt .ksx: member shapes disagree at {path}")
+        sequences = None
+        seq_path = os.path.join(path, "sequences.npz")
+        if meta.get("has_sequences") and os.path.exists(seq_path):
+            sq = np.load(seq_path)
+            data, offs = sq["data"].tobytes(), sq["offsets"]
+            sequences = [data[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+        idx = cls(
+            IndexConfig(meta["ksize"], meta["scaled"], meta["moltype"]),
+            meta["names"],
+            arrs["mins"],
+            arrs["abundances"],
+            arrs["offsets"],
+            source_fasta=meta.get("source_fasta", ""),
+            sequences=sequences,
+            device=device,
+        )
+        if meta.get("md5s"):
+            idx._md5s = list(meta["md5s"])
+        shape = manifest["inverted_shape"]
+        idx._inverted = InvertedIndex(
+            arrs["inv_g_hi"],
+            arrs["inv_g_lo"],
+            arrs["inv_tid"],
+            arrs["inv_ab"],
+            shape[0],
+            shape[1],
+            bucket_starts=arrs["inv_bucket_starts"],
+            max_span=shape[2],
+            bucket_shift=shape[3],
+        )
+        return idx
+
+    # ------------------------------------------------------------------
+    # sourmash interop
+    # ------------------------------------------------------------------
+
+    def to_sig_zip(self, path: str) -> str:
+        from .sigzip import write_sig_zip
+
+        return write_sig_zip(path, self.signatures())
