@@ -1,7 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, kernel checks,
 and the port's three paths at the scale of a human reference proteome.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--kernels-only]
+
+(``--kernels-only`` stops after phase 3 and prints no result line: the
+quick check of a kernel edit.)
 
 Phases (each prints its lines; any failure exits non-zero):
 
@@ -10,12 +13,20 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build: compile every CUDA source of the port (one nvcc each, in
    parallel);
 3. kernels vs their plain versions on the card, tolerance 0:
-   ``masked_window_keys`` and ``window_hashes`` for 3 moltypes × 4
-   (k, scaled) × 3 shapes (plus sampled windows against the scalar
-   murmur oracle), ``bitonic_sort_rows`` at (B, S) from (1024, 128) to
-   (2, 65536) and at widths that are not powers of two, on full-range
-   u64 keys with sentinels and duplicates; then CUDA-event timings, each
-   kernel's bound and, for the sort, ``torch.sort``'s time;
+   ``masked_window_keys`` and ``window_hashes`` for 3 moltypes × 6
+   (k, scaled) — the masked kernel's compiled k and two it runs with k
+   at run time — × 5 shapes (tiles of 64, 128 and 256 threads, a padded
+   length and a window count that are odd, rows shorter than k; plus
+   sampled windows against the scalar murmur oracle);
+   ``bitonic_sort_rows`` over every width class of its design (one-warp
+   rows, one-block rows, cluster rows up to 131,072 keys, rows merged
+   through device memory), at widths that are not powers of two, B = 1
+   and strided rows, on full-range u64 keys with sentinels and
+   duplicates. Then timings: device time per call (events around the
+   replay of a CUDA graph that captured ``GRAPH_CALLS`` wrapper calls
+   over rotating inputs, so the host's enqueue cannot set it) for each
+   kernel, its plain version and, for the sort, ``torch.sort``; the host
+   clock per wrapper call beside it; and each kernel's bound;
 4. main path (``index`` → ``search``) through ``python -m
    kmerseek_tpu_torch`` (run in this process, so launch counters are
    visible): a seeded synthetic proteome of 20,000 proteins (~11M
@@ -48,8 +59,8 @@ Phases (each prints its lines; any failure exits non-zero):
    launched;
 7. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last. A kernel's
-   ``launches`` counts its wrapper's calls; one sort call launches 1 to
-   15 grids (``sort_grid_launches``).
+   ``launches`` counts its wrapper's calls; one sort call is one grid up
+   to 131,072 keys a row (``ops.sort_cuda.sort_grid_launches``).
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from kmerseek_tpu_torch.core.signature import signatures_from_sketch_batch
 from kmerseek_tpu_torch.entry import entry
 from kmerseek_tpu_torch.ops import cuda_build
 from kmerseek_tpu_torch.ops import sketch as sketch_mod
+from kmerseek_tpu_torch.ops import sort_cuda
 from kmerseek_tpu_torch.ops.encoding import encode_bytes_np, max_hash_for_scaled
 from kmerseek_tpu_torch.ops.intersect import pairwise_stats
 from kmerseek_tpu_torch.ops.murmur3 import murmur64_bytes_py
@@ -87,14 +99,38 @@ from kmerseek_tpu_torch.ops.sketch_cuda import (
     window_hashes,
     window_hashes_ref,
 )
-from kmerseek_tpu_torch.ops.sort_cuda import bitonic_sort_rows, bitonic_sort_rows_ref
+from kmerseek_tpu_torch.ops.sort_cuda import (
+    bitonic_sort_rows,
+    bitonic_sort_rows_ref,
+    max_cluster_blocks,
+    sort_grid_launches,
+)
 from kmerseek_tpu_torch.ops.u64 import sort_key
 
 AA = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 MOLTYPES = ("protein", "dayhoff", "hp")
-K_SCALED = ((5, 1), (10, 1), (16, 5), (24, 5))
+# the masked kernel has k = 5, 10, 16, 24 compiled in; 12 and 40 run its
+# run-time-k version
+K_SCALED = ((5, 1), (10, 1), (16, 5), (24, 5), (12, 1), (40, 5))
+HASH_SHAPES = {
+    "1024x1024": (1024, 1024), "8x32768": (8, 32768), "ragged": (16, 1024),
+    "narrow": (9, 256), "odd": (5, 1531),
+}
+RAGGED_SHAPES = ("ragged", "narrow", "odd")  # rows 0..3 get lengths 0, k-1, k, L
 SOURCES = ("masked_sketch.cu", "window_hashes.cu", "bitonic_sort.cu")
-SORT_SHAPES = ((1024, 128), (1024, 1024), (64, 8192), (8, 32768), (2, 65536), (16, 3000), (3, 100))
+# (B, S, cluster blocks or None for what the device allows): one-warp rows
+# (S <= 256), one-block rows (<= 8,192), cluster rows (<= 131,072 with
+# clusters of 16), rows merged through device memory (beyond the cluster,
+# or the cluster capped)
+SORT_SHAPES = (
+    (5, 1, None), (7, 2, None), (3, 100, None), (1024, 128, None), (64, 203, None), (1, 256, None),
+    (64, 357, None), (1024, 1024, None), (32, 2507, None), (16, 3000, None), (1, 4965, None),
+    (64, 8192, None), (8, 9000, None), (8, 16384, None), (8, 32768, None), (3, 39370, None),
+    (1, 65536, None), (2, 65536, None), (2, 100000, None), (2, 65536, 8), (2, 65536, 1),
+    (3, 39370, 2), (2, 150000, None),
+)
+# wrapper calls captured into one CUDA graph for a device-time reading
+GRAPH_CALLS = 20
 # kmerseek's stitcher asserts that the three stitched strings of a group
 # have one length. In the 2-letter hp alphabet nearly every 24-mer occurs
 # in an 11M-residue proteome, so random multi-k-mer hits break that
@@ -171,18 +207,6 @@ def sort_bound_ms(B: int, S: int, sm_clock_hz: float):
     return max(t_bytes, t_ops) * 1e3, by, t_bytes * 1e3, t_ops * 1e3
 
 
-def sort_grid_launches(S: int, tile: int = 4096) -> int:
-    """Kernel grids that one ``bitonic_sort_rows`` call over rows of width
-    S launches (``csrc/bitonic_sort.cu``, ``kSmemKeys`` = ``tile``): one
-    shared-memory grid for the stages up to the tile, then per wider
-    stage one device-memory grid per stride >= the tile and one more
-    shared-memory grid. The wrapper's ``launches`` counts calls."""
-    S2 = 1 << max(S - 1, 1).bit_length()
-    lg_t, lg_s = min(S2, tile).bit_length() - 1, S2.bit_length() - 1
-    # stage 2^m, m > lg_t: m - lg_t device-memory strides + 1 shared grid
-    return 1 + sum(m - lg_t + 1 for m in range(lg_t + 1, lg_s + 1))
-
-
 def sm_clock_hz() -> float:
     try:
         return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
@@ -190,19 +214,50 @@ def sm_clock_hz() -> float:
         return 1.98e9
 
 
-def event_median_ms(fn, reps: int) -> float:
-    for _ in range(3):
-        fn()
+def device_time_ms(call, inputs, replays: int = 7) -> float:
+    """Device time of one ``call(*inputs[i])`` in ms, which the host's
+    enqueue cannot set: ``GRAPH_CALLS`` calls, rotating over ``inputs``,
+    are captured into one CUDA graph (the kernels' ctypes launches go to
+    the current stream, so they are captured like PyTorch's own); the
+    median over ``replays`` of the event span around one replay, over
+    the number of calls. Every call's outputs stay alive, so each call
+    writes buffers of its own; with the rotating inputs one replay
+    touches more than the 50 MB L2 at every timed shape but the
+    (2, 65536) sort (1 MB a call, 28 MB a replay: L2-warm)."""
+    for args in inputs[:2]:
+        call(*args)
+    torch.cuda.synchronize()
+    graph, keep = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(GRAPH_CALLS):
+            keep.append(call(*inputs[i % len(inputs)]))
+    graph.replay()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(replays):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        graph.replay()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / GRAPH_CALLS)
+    del graph, keep
     return statistics.median(times)
+
+
+def host_clock_ms(call, inputs, calls: int = 200) -> float:
+    """Host clock per wrapper call in ms: ``calls`` calls back to back,
+    one ``synchronize()``, wall over count. What a path pays per launch,
+    allocation included; not what the bound is compared with."""
+    for args in inputs[:2]:
+        call(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        call(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 def _mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -220,17 +275,17 @@ def hash_kernel_checks(rng, dev) -> dict:
     """Both hash kernels against their plain versions and the scalar
     oracle; returns {kernel name: largest abs error seen}, which is 0
     unless it raised."""
-    shapes = {"1024x1024": (1024, 1024), "8x32768": (8, 32768), "ragged": (16, 1024)}
     n_checked = 0
     errs = {"masked_window_keys": 0.0, "window_hashes": 0.0}
-    for label, (B, L) in shapes.items():
+    for label, (B, L) in HASH_SHAPES.items():
         seqs_np = AA[rng.integers(0, 20, size=(B, L))]
         lens_np = rng.integers(0, L + 1, size=B).astype(np.int32)
         for moltype in MOLTYPES:
             enc = encode_bytes_np(seqs_np, moltype)
             for k, scaled in K_SCALED:
                 lens = lens_np.copy()
-                if label == "ragged":
+                ragged = label in RAGGED_SHAPES
+                if ragged:
                     lens[:4] = [0, k - 1, k, L]
                 seqs = torch.from_numpy(seqs_np).to(dev)
                 lt = torch.from_numpy(lens).to(dev)
@@ -249,7 +304,7 @@ def hash_kernel_checks(rng, dev) -> dict:
                     raise SystemExit(f"masked_window_keys disagrees with its plain version: {where} (max abs err {e_masked})")
                 if e_window:
                     raise SystemExit(f"window_hashes disagrees with its plain version: {where} (max abs err {e_window})")
-                if label == "ragged" and not (cnt[0] == 0 and cnt[1] == 0 and not keep[:2].any()):
+                if ragged and not (cnt[0] == 0 and cnt[1] == 0 and not keep[:2].any()):
                     raise SystemExit(f"rows shorter than k kept windows (k={k})")
                 # scalar oracle on sampled windows: every window's raw
                 # hash, and the masked key where it is kept
@@ -265,10 +320,14 @@ def hash_kernel_checks(rng, dev) -> dict:
                     if int(hk[b, j]) != (ref if kept else 2**64 - 1) or int(hw[b, j]) != ref or kp[b, j] != kept:
                         raise SystemExit(f"a hash kernel disagrees with the murmur oracle at {where} ({b},{j})")
                     n_checked += 1
-        log(f"hash kernel checks {label} (B={B}, L={L}): 12 configs bit-equal for both kernels")
+        log(
+            f"hash kernel checks {label} (B={B}, L={L}): {len(MOLTYPES) * len(K_SCALED)} configs "
+            f"bit-equal for both kernels"
+        )
     log(
-        f"hash kernel checks: 36 configs bit-equal, {n_checked} sampled windows match the scalar oracle; "
-        f"max abs err {errs}"
+        f"hash kernel checks: {len(HASH_SHAPES) * len(MOLTYPES) * len(K_SCALED)} configs bit-equal "
+        f"(k compiled into the masked kernel: 5, 10, 16, 24; at run time: 12, 40), "
+        f"{n_checked} sampled windows match the scalar oracle; max abs err {errs}"
     )
     return errs
 
@@ -285,19 +344,40 @@ def sort_keys(rng, B, S, dev) -> torch.Tensor:
 def sort_kernel_checks(rng, dev) -> float:
     """The sort against its plain version; returns the largest abs error
     seen (as u64), which is 0 unless it raised."""
-    err = 0.0
-    for B, S in SORT_SHAPES:
-        keys = sort_keys(rng, B, S, dev)
-        got = bitonic_sort_rows(keys)
+    allowed = max_cluster_blocks(dev)
+
+    index = torch.cuda.current_device()
+
+    def check(keys, cs) -> float:
+        cs = allowed if cs is None else min(cs, allowed)
+        # the wrapper takes its cluster size from this table; capped here
+        # so that narrower rows take the device-memory merge too
+        sort_cuda._cluster_blocks[index] = cs
+        try:
+            got = bitonic_sort_rows(keys)
+        finally:
+            sort_cuda._cluster_blocks[index] = allowed
         want = bitonic_sort_rows_ref(keys)
         torch.cuda.synchronize()
-        if got.shape != keys.shape:
-            raise SystemExit(f"bitonic_sort_rows returned {tuple(got.shape)} for B={B}, S={S}")
+        where = f"B={keys.shape[0]}, S={keys.shape[1]}, row stride {keys.stride(0)}, clusters of {cs}"
+        if got.shape != keys.shape or not got.is_contiguous() or got.data_ptr() == keys.data_ptr():
+            raise SystemExit(f"bitonic_sort_rows returned no fresh {tuple(keys.shape)} tensor at {where}")
         e = _mismatch(got, want)
-        err = max(err, e)
         if e:
-            raise SystemExit(f"bitonic_sort_rows disagrees with its plain version at B={B}, S={S} (max abs err {e})")
-    log(f"sort kernel checks: {len(SORT_SHAPES)} shapes {SORT_SHAPES} bit-equal; max abs err {err}")
+            raise SystemExit(f"bitonic_sort_rows disagrees with its plain version at {where} (max abs err {e})")
+        return e
+
+    err, seen = 0.0, []
+    for B, S, cs in SORT_SHAPES:
+        err = max(err, check(sort_keys(rng, B, S, dev), cs))
+        seen.append(f"{B}x{S}:{sort_grid_launches(S, allowed if cs is None else min(cs, allowed))}")
+    # rows one slot apart, as `_compact_valid` hands them to the sort
+    for B, S in ((64, 203), (4, 2507), (2, 39370)):
+        err = max(err, check(sort_keys(rng, B, S + 1, dev)[:, :S], None))
+    log(
+        f"sort kernel checks: {len(SORT_SHAPES)} shapes and 3 with strided rows bit-equal "
+        f"(BxS:grids, clusters of up to {allowed} blocks): {' '.join(seen)}; max abs err {err}"
+    )
     return err
 
 
@@ -307,25 +387,41 @@ def kernel_phase(rng, dev) -> list:
     clock = sm_clock_hz()
     entries = []
 
-    # hash kernels at the main path's largest common shape, hp/k24/scaled5
+    # hash kernels at the main path's largest common shape, hp/k24/scaled5,
+    # over 8 distinct batches. The published time is taken with every row
+    # at full length: the bound charges all B*W windows, and the masked
+    # kernel skips the windows past a row's length, so only there do time
+    # and bound describe the same work. Lengths L/2..L are timed for the log.
     B, L, k, scaled = 1024, 1024, 24, 5
-    seqs = torch.from_numpy(AA[rng.integers(0, 20, size=(B, L))]).to(dev)
-    lt = torch.from_numpy(rng.integers(L // 2, L + 1, size=B).astype(np.int32)).to(dev)
     kw = dict(k=k, scaled=scaled, moltype="hp")
+    full, ragged = [], []
+    for _ in range(8):
+        seqs = torch.from_numpy(AA[rng.integers(0, 20, size=(B, L))]).to(dev)
+        lt = torch.from_numpy(rng.integers(L // 2, L + 1, size=B).astype(np.int32)).to(dev)
+        full.append((seqs, torch.full_like(lt, L)))
+        ragged.append((seqs, lt))
+    how = (
+        f"device time per call: events around a replayed CUDA graph of {GRAPH_CALLS} calls over "
+        f"{len(full)} rotating inputs, outputs kept apart, median of 7 replays"
+    )
     for name, fn, ref, out_bytes, src, replaces in [
         ("masked_window_keys", masked_window_keys, masked_window_keys_ref, 8,
          "masked_sketch.cu", "kmerseek_tpu/ops/sketch_pallas.py:98"),
         ("window_hashes", window_hashes, window_hashes_ref, 9,
          "window_hashes.cu", "kmerseek_tpu/ops/sketch_pallas.py:66"),
     ]:
-        ms = event_median_ms(lambda: fn(seqs, lt, **kw), 50)
-        plain_ms = event_median_ms(lambda: ref(seqs, lt, **kw), 20)
+        ms = device_time_ms(lambda s, n: fn(s, n, **kw), full)
+        plain_ms = device_time_ms(lambda s, n: ref(s, n, **kw), full)
+        ragged_ms = device_time_ms(lambda s, n: fn(s, n, **kw), ragged)
+        host_ms = host_clock_ms(lambda s, n: fn(s, n, **kw), full)
         bound_ms, bound_by = kernel_bound_ms(B, L, k, clock, out_bytes)
         log(
-            f"{name} timing (B={B}, L={L}, hp/k{k}/scaled{scaled}, median of 50 CUDA-event runs): "
-            f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain version; bound {bound_ms:.4f} ms "
-            f"({bound_by}; {murmur_int_ops(k)} int32 ops/window at {clock / 1e6:.0f} MHz, "
-            f"{out_bytes} B out/window); {B * (L - k + 1) / ms / 1e6:.2f} G windows/s"
+            f"{name} timing (B={B}, L={L}, hp/k{k}/scaled{scaled}, every row at full length; {how}): "
+            f"{ms:.4f} ms kernel ({ragged_ms:.4f} ms with lengths L/2..L, not held against the bound), "
+            f"{plain_ms:.4f} ms plain version; host clock per wrapper call {host_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}; {murmur_int_ops(k)} int32 ops/window over all "
+            f"B*W windows at {clock / 1e6:.0f} MHz, {out_bytes} B out/window) = "
+            f"{100 * bound_ms / ms:.1f}% of the time; {B * (L - k + 1) / ms / 1e6:.2f} G windows/s"
         )
         entries.append({
             "name": name, "route": "cuda", "source": f"kmerseek_tpu_torch/csrc/{src}",
@@ -334,22 +430,27 @@ def kernel_phase(rng, dev) -> list:
             "library_ms": None,  # no single PyTorch call computes this function
         })
 
-    # the sort at a sketch-sized and a titin-sized row width
+    # the sort at a sketch-sized, a wide-and-tall and a titin-sized shape of
+    # path B, each over inputs that together exceed the L2
     sort_entry = None
-    for B, S in ((1024, 1024), (2, 65536)):
-        keys = sort_keys(rng, B, S, dev)
-        sk = sort_key(keys)
-        ms = event_median_ms(lambda: bitonic_sort_rows(keys), 30)
-        plain_ms = event_median_ms(lambda: bitonic_sort_rows_ref(keys), 30)
-        lib_ms = event_median_ms(lambda: torch.sort(sk, dim=1), 30)
+    allowed = max_cluster_blocks(dev)
+    for B, S in ((1024, 1024), (128, 8192), (2, 65536)):
+        inputs = [(sort_keys(rng, B, S, dev),) for _ in range(8)]
+        flipped = [(sort_key(x),) for (x,) in inputs]
+        ms = device_time_ms(bitonic_sort_rows, inputs)
+        plain_ms = device_time_ms(bitonic_sort_rows_ref, inputs)
+        lib_ms = device_time_ms(lambda x: torch.sort(x, dim=1), flipped)
+        host_ms = host_clock_ms(bitonic_sort_rows, inputs)
         bound_ms, bound_by, bytes_ms, ops_ms = sort_bound_ms(B, S, clock)
         log(
-            f"bitonic_sort_rows timing (B={B}, S={S}, median of 30 CUDA-event runs of one wrapper "
-            f"call = {sort_grid_launches(S)} grid launches): "
+            f"bitonic_sort_rows timing (B={B}, S={S}; one wrapper call = "
+            f"{sort_grid_launches(S, allowed)} grid launches; {how}): "
             f"{ms:.4f} ms kernel, {plain_ms:.4f} ms plain version, {lib_ms:.4f} ms torch.sort; "
+            f"host clock per wrapper call {host_ms:.4f} ms; "
             f"bound {bound_ms:.4f} ms ({bound_by}; bytes term {bytes_ms:.4f} ms at 16 B/key, "
             f"operations term {ops_ms:.4f} ms for B*S*log2(S) comparisons at "
-            f"{SORT_OPS_PER_COMPARISON} int32 ops each, {clock / 1e6:.0f} MHz)"
+            f"{SORT_OPS_PER_COMPARISON} int32 ops each, {clock / 1e6:.0f} MHz) = "
+            f"{100 * bound_ms / ms:.1f}% of the time"
         )
         if sort_entry is None:
             sort_entry = {
@@ -530,7 +631,8 @@ def main_path_phase(c: Corpus) -> int:
     log(
         f"main path: launches {counts}, summed masked-kernel wrapper span {kernel_ms:.3f} ms "
         f"(CUDA events around each wrapper call: kernel + host launch overhead), "
-        f"summed bound {timer.bound_ms:.3f} ms; sparse cross-check runs {validations}; "
+        f"summed bound {timer.bound_ms:.3f} ms over every window of the padded batches "
+        f"(more than the rows' lengths need); sparse cross-check runs {validations}; "
         f"{len(rows)} result rows, planted found {len(planted) - len(missing)}/{len(planted)}"
     )
     if launched <= 0:
@@ -788,6 +890,7 @@ def path_b_phase(c: Corpus, n_pair_targets: int = 2048) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true", help="stop after the kernel phase")
     args = ap.parse_args()
 
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
@@ -804,10 +907,20 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = cuda_build.build_all(SOURCES)
     log(f"build: {secs} (wall {time.perf_counter() - t0:.1f} s)")
+    for source in SOURCES:  # what ptxas reported (nvcc -Xptxas -v)
+        for u in cuda_build.resource_usage(source):
+            log(
+                f"ptxas {source}: {u['kernel']}: {u['registers']} registers, {u['smem_bytes']} B static "
+                f"shared memory, stack {u['stack_bytes']} B, spills {u['spill_store_bytes']} B stored / "
+                f"{u['spill_load_bytes']} B loaded"
+            )
 
     t0 = time.perf_counter()
     entries = {e["name"]: e for e in kernel_phase(kernel_rng, dev)}
     log(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    if args.kernels_only:
+        print(json.dumps({"kernels": list(entries.values())}))
+        return 0
 
     with tempfile.TemporaryDirectory(prefix="kmerseek-smoke-") as workdir:
         c = Corpus(np.random.default_rng(args.seed), workdir)

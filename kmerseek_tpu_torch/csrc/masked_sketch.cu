@@ -11,20 +11,41 @@
 //
 // What bounds it on this card: integer ALU. Each window reads 1 byte and
 // writes 8, but murmur costs ~12 64-bit multiplies plus rotates, xors and
-// adds per window (≈100+ 32-bit integer instructions), so the operation
-// term is several times the memory term at every k.
+// adds per window (about 100 32-bit integer instructions at k = 24), so
+// the operation term is several times the memory term at every k. The
+// design therefore spends as few instructions as it can on anything that
+// is not the hash.
 //
-// What the design does about it: one thread per window with native
-// 64-bit arithmetic (the TPU kernel emulated u64 as (hi, lo) u32 pairs).
-// A block stages its row segment plus the k-1 byte halo, already
-// LUT-encoded, in shared memory once, so the k-fold reuse of every byte
-// costs shared-memory reads, not device-memory reads. Output stores are
-// coalesced 8-byte writes. The kept count is a warp ballot + popcount and
-// one integer atomicAdd per warp (deterministic result).
+// What the design does about it:
+//   * Four adjacent windows a thread, rolling words. A thread reads the
+//     encoded bytes of its run from shared memory once, as 32-bit words
+//     (lane stride one word: no bank conflicts), and cuts each window's
+//     64-bit words out of them with funnel shifts (murmur64.cuh): one or
+//     two instructions a word instead of eight byte loads and sixteen
+//     shifts and ors.
+//   * k compiled in for k = 5, 10, 16 and 24 (template parameter, chosen
+//     in the launch function), so the block loop and the tail are
+//     straight-line code; every other k <= kMaxK runs the run-time
+//     version (K = 0) over the same tile, byte by byte.
+//   * Tiles of 256 to 1,024 windows a block (64, 128 or 256 threads,
+//     chosen from the row's window count, so a 256-residue row is one
+//     64-thread block). The block stages its bytes plus the halo with
+//     16-byte global loads, applies the LUT once per byte on the way, and
+//     stores 16 encoded bytes at a time; the 256-byte LUT comes from a
+//     device table the wrapper caches, not from the kernel's parameters.
+//   * A thread's four keys leave as two 16-byte stores
+//     (st.global.v2.u64); the two stores of a warp cover 1,024 adjacent
+//     bytes, eight whole 128-byte lines.
+//   * Windows past the row's length are not hashed at all: a thread whose
+//     run starts beyond it only writes sentinels.
+//   * The kept count is summed in registers, across the warp with
+//     `__reduce_add_sync`, across the block in shared memory. A row that
+//     is one tile stores it; wider rows add it with one integer atomicAdd
+//     per block (deterministic) to a count the launch function zeroes on
+//     the same stream, so the wrapper launches no fill kernel.
 //
-// The hash and the tile staging live in murmur64.cuh, shared with
-// window_hashes.cu. Host interface: plain C, bound with ctypes (no
-// PyTorch headers).
+// The hash lives in murmur64.cuh, shared with window_hashes.cu. Host
+// interface: plain C, bound with ctypes (no PyTorch headers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,39 +56,152 @@ namespace {
 
 using namespace kmerseek;
 
-__global__ void __launch_bounds__(kTile)
+constexpr int kMaxThreads = 256;
+// encoded bytes a block stages: its windows, the halo, and what the last
+// thread's spare words and the 16-byte staging granule reach beyond them
+constexpr int kStageBytes = kMaxThreads * kRun + kMaxK + 48;
+
+__device__ __forceinline__ uint32_t encode4(uint32_t x, const unsigned char* s_lut) {
+  return (uint32_t)s_lut[x & 0xff] | ((uint32_t)s_lut[(x >> 8) & 0xff] << 8) |
+         ((uint32_t)s_lut[(x >> 16) & 0xff] << 16) | ((uint32_t)s_lut[x >> 24] << 24);
+}
+
+template <int K, int I, int NW>
+__device__ __forceinline__ void hash_run(const uint32_t (&w)[NW], uint64_t seed,
+                                         uint64_t (&h)[kRun]) {
+  if constexpr (I < kRun) {
+    h[I] = murmur64_run<K, I>(w, seed);
+    hash_run<K, I + 1>(w, seed, h);
+  }
+}
+
+// K > 0: k compiled in (the argument k equals K); K == 0: run-time k.
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads)
 masked_sketch_kernel(const unsigned char* __restrict__ seqs,
                      const int32_t* __restrict__ lengths,
                      long long* __restrict__ keys,
                      int32_t* __restrict__ n_kept,
-                     int L, int W, int k, int tiles_per_row,
-                     uint64_t max_hash, uint64_t seed, ByteLut lut) {
-  __shared__ unsigned char s_lut[256];
-  __shared__ unsigned char s_seq[kTile + kMaxK];
+                     const unsigned char* __restrict__ lut,
+                     int L, int W, int k_arg, int tiles_per_row,
+                     uint64_t max_hash, uint64_t seed, int vec_in, int vec_out) {
+  __shared__ __align__(16) unsigned char s_lut[256];
+  __shared__ __align__(16) unsigned char s_seq[kStageBytes];
+  __shared__ int s_count[kMaxThreads / 32];
 
+  const int k = K > 0 ? K : k_arg;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int tile = nthreads * kRun;
   const int row = blockIdx.x / tiles_per_row;
-  const int w0 = (blockIdx.x - row * tiles_per_row) * kTile;
+  const int w0 = (blockIdx.x - row * tiles_per_row) * tile;
   const unsigned char* src = seqs + (size_t)row * L;
 
-  s_lut[threadIdx.x] = lut.v[threadIdx.x];
-  __syncthreads();
-  // this tile's bytes plus the k-1 halo, encoded
-  stage_encoded_tile(src, L, w0, k, s_lut, s_seq);
+  if (tid < 64) {
+    reinterpret_cast<uint32_t*>(s_lut)[tid] = reinterpret_cast<const uint32_t*>(lut)[tid];
+  }
   __syncthreads();
 
-  const int j = w0 + threadIdx.x;
-  const int n_windows = lengths[row] - (k - 1);
-  bool keep = false;
-  if (j < W) {
-    const uint64_t h = murmur64(s_seq + threadIdx.x, k, seed);
-    keep = j < n_windows && h <= max_hash;
-    keys[(size_t)row * W + j] = keep ? (long long)h : -1LL;
+  // row bytes [w0, w0 + tile + k + 16), encoded, 16 at a time; bytes past
+  // the padded row stage as lut[0] (only windows j >= W see them, and
+  // those are neither written nor counted)
+  const int nvec = (tile + k + 31) / 16;
+  for (int v = tid; v < nvec; v += nthreads) {
+    const int p = w0 + 16 * v;
+    uint4 x;
+    if (vec_in && p + 16 <= L) {
+      x = *reinterpret_cast<const uint4*>(src + p);
+    } else {
+      uint32_t b[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (p + i < L) b[i >> 2] |= (uint32_t)src[p + i] << (8 * (i & 3));
+      }
+      x = make_uint4(b[0], b[1], b[2], b[3]);
+    }
+    uint4 e = make_uint4(encode4(x.x, s_lut), encode4(x.y, s_lut), encode4(x.z, s_lut),
+                         encode4(x.w, s_lut));
+    *reinterpret_cast<uint4*>(s_seq + 16 * v) = e;
   }
-  // every thread of the block reaches the ballot (no early return)
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if ((threadIdx.x & 31) == 0 && ballot != 0) {
-    atomicAdd(n_kept + row, __popc(ballot));
+  __syncthreads();
+
+  const int j0 = w0 + tid * kRun;
+  int n_windows = lengths[row] - (k - 1);
+  n_windows = n_windows < W ? n_windows : W;
+  uint64_t h[kRun];
+  int kept = 0;
+  if (j0 < n_windows) {
+    if constexpr (K > 0) {
+      constexpr int NW = kRunWords<K>;
+      uint32_t w[NW];
+      const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s_seq) + tid * (kRun / 4);
+#pragma unroll
+      for (int n = 0; n < NW; ++n) w[n] = s32[n];
+      hash_run<K, 0>(w, seed, h);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) h[i] = murmur64(s_seq + tid * kRun + i, k, seed);
+    }
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      const bool keep = j0 + i < n_windows && h[i] <= max_hash;
+      h[i] = keep ? h[i] : ~0ULL;
+      kept += keep;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) h[i] = ~0ULL;
   }
+
+  if (j0 < W) {
+    const size_t o = (size_t)row * W + j0;
+    if (vec_out && j0 + kRun <= W && (o & 1) == 0) {
+      ulonglong2* out = reinterpret_cast<ulonglong2*>(keys + o);
+      out[0] = make_ulonglong2(h[0], h[1]);
+      out[1] = make_ulonglong2(h[2], h[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) {
+        if (j0 + i < W) keys[o + i] = (long long)h[i];
+      }
+    }
+  }
+
+  // kept count: registers -> warp -> block -> one store or atomicAdd
+  const int warp_kept = __reduce_add_sync(0xffffffffu, kept);
+  if ((tid & 31) == 0) s_count[tid >> 5] = warp_kept;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int wp = 0; wp < nthreads / 32; ++wp) total += s_count[wp];
+    if (tiles_per_row == 1) {
+      n_kept[row] = total;
+    } else if (total != 0) {
+      atomicAdd(n_kept + row, total);
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch(const void* seqs, const void* lengths, void* keys, void* n_kept,
+                   const void* lut, int B, int L, int k, uint64_t max_hash, uint64_t seed,
+                   cudaStream_t st) {
+  const int W = L - k + 1;
+  const int nthreads = W <= 64 * kRun ? 64 : (W <= 128 * kRun ? 128 : kMaxThreads);
+  const int tile = nthreads * kRun;
+  const int tiles = (W + tile - 1) / tile;
+  const long long blocks = (long long)tiles * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  if (tiles > 1) {  // blocks add their counts: start from zero, on this stream
+    cudaError_t e = cudaMemsetAsync(n_kept, 0, sizeof(int32_t) * (size_t)B, st);
+    if (e != cudaSuccess) return e;
+  }
+  const int vec_in = ((uintptr_t)seqs % 16 == 0) && (L % 16 == 0);
+  const int vec_out = (uintptr_t)keys % 16 == 0;
+  masked_sketch_kernel<K><<<(unsigned)blocks, nthreads, 0, st>>>(
+      (const unsigned char*)seqs, (const int32_t*)lengths, (long long*)keys,
+      (int32_t*)n_kept, (const unsigned char*)lut, L, W, k, tiles, max_hash, seed, vec_in,
+      vec_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -75,26 +209,25 @@ masked_sketch_kernel(const unsigned char* __restrict__ seqs,
 extern "C" {
 
 // seqs (B, L) uint8, lengths (B,) int32, keys (B, W) int64 with
-// W = L - k + 1, n_kept (B,) int32 zeroed by the caller; lut_host is a
-// 256-byte host table. Returns the cudaError_t of the launch.
+// W = L - k + 1, n_kept (B,) int32 (need not be zeroed); lut is a
+// 256-byte table in device memory, 4-byte aligned. Returns the
+// cudaError_t of the launch.
 int masked_window_keys_launch(const void* seqs, const void* lengths,
                               void* keys, void* n_kept, int B, int L, int k,
                               unsigned long long max_hash,
                               unsigned long long seed,
-                              const unsigned char* lut_host, void* stream) {
+                              const void* lut, void* stream) {
   const int W = L - k + 1;
   if (B <= 0 || W <= 0) return (int)cudaSuccess;
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  ByteLut lut;
-  for (int i = 0; i < 256; ++i) lut.v[i] = lut_host[i];
-  const int tiles = (W + kTile - 1) / kTile;
-  const long long blocks = (long long)tiles * B;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  masked_sketch_kernel<<<(unsigned)blocks, kTile, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)seqs, (const int32_t*)lengths, (long long*)keys,
-      (int32_t*)n_kept, L, W, k, tiles, (uint64_t)max_hash, (uint64_t)seed,
-      lut);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (k) {  // the compiled k; ops/sketch_cuda.py lists them as COMPILED_KS
+    case 5: return (int)launch<5>(seqs, lengths, keys, n_kept, lut, B, L, k, max_hash, seed, st);
+    case 10: return (int)launch<10>(seqs, lengths, keys, n_kept, lut, B, L, k, max_hash, seed, st);
+    case 16: return (int)launch<16>(seqs, lengths, keys, n_kept, lut, B, L, k, max_hash, seed, st);
+    case 24: return (int)launch<24>(seqs, lengths, keys, n_kept, lut, B, L, k, max_hash, seed, st);
+    default: return (int)launch<0>(seqs, lengths, keys, n_kept, lut, B, L, k, max_hash, seed, st);
+  }
 }
 
 const char* kmerseek_cuda_error_string(int code) {

@@ -15,9 +15,10 @@
 // ~100 32-bit integer instructions per window against 1 byte read and
 // 9 bytes written: 8 of hash, 1 of keep).
 //
-// What the design does about it: the masked kernel's design, through the
-// same device functions (murmur64.cuh): one thread per window with native
-// 64-bit arithmetic, the row segment plus its k-1 halo staged encoded in
+// What the design does about it (the masked kernel's first design; its
+// rolling-word redesign is not taken here yet): one thread per window
+// with native 64-bit arithmetic through the run-time-k hash of
+// murmur64.cuh, the row segment plus its k-1 halo staged encoded in
 // shared memory, coalesced 8-byte hash stores and 1-byte keep stores
 // straight into a torch.bool tensor.
 //

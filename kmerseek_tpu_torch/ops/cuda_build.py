@@ -6,8 +6,11 @@ headers: a build takes seconds). Libraries land in ``_build/`` inside
 the package, named by the hash of the source, of every header it
 includes from ``csrc/`` (``#include "x.cuh"``, followed recursively)
 and of the flags, so an edited source or shared header rebuilds every
-library that uses it and an unchanged one loads at once. Nothing is
-built or loaded when a module is imported.
+library that uses it and an unchanged one loads at once. ``-Xptxas -v``
+is among the flags: what ptxas reports for each kernel (registers,
+shared memory, spills) is kept beside the library and read back by
+``resource_usage``. Nothing is built or loaded when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -33,6 +36,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 _lock = threading.Lock()
@@ -89,6 +94,9 @@ def _compile(source: str) -> str:
         raise RuntimeError(
             f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
+    with open(f"{tmp}.txt", "w") as f:
+        f.write(proc.stderr)
+    os.replace(f"{tmp}.txt", f"{lib}.ptxas.txt")
     os.replace(tmp, lib)  # atomic: a concurrent builder never sees half a file
     build_seconds[source] = time.perf_counter() - t0
     return lib
@@ -102,6 +110,59 @@ def build_all(sources: Iterable[str]) -> Dict[str, float]:
         for fut in [pool.submit(_compile, s) for s in sources]:
             fut.result()
     return {s: build_seconds[s] for s in sources}
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?, (\d+) bytes smem)?")
+
+
+def _short_name(demangled: str) -> str:
+    """``void <unnamed>::f<(int)5, (bool)1>(args...)`` → ``f<5, 1>``."""
+    name = demangled.removeprefix("void ")
+    name = name.replace("<unnamed>::", "").replace("(anonymous namespace)::", "")
+    name = re.sub(r"\((?:int|bool)\)", "", name)
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def parse_ptxas(text: str) -> List[dict]:
+    """``nvcc -Xptxas -v`` output → one ``{"kernel" (mangled),
+    "registers", "smem_bytes" (static), "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}`` per kernel."""
+    out, cur = [], None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            cur = {"kernel": m.group(1)}
+        elif cur is not None and (m := _SPILL.search(line)):
+            cur.update(zip(("stack_bytes", "spill_store_bytes", "spill_load_bytes"), map(int, m.groups())))
+        elif cur is not None and (m := _USED.search(line)):
+            cur["registers"] = int(m.group(1))
+            cur["smem_bytes"] = int(m.group(2) or 0)
+            out.append(cur)
+            cur = None
+    return out
+
+
+def resource_usage(source: str) -> List[dict]:
+    """What ptxas reported for each kernel of ``csrc/<source>`` when it
+    was built (``parse_ptxas``), the kernels' names demangled and
+    shortened where ``cu++filt`` is at hand."""
+    with open(f"{_compile(source)}.ptxas.txt") as f:
+        out = parse_ptxas(f.read())
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(find_nvcc()), "cu++filt")
+    if out and os.path.exists(filt):
+        names = subprocess.run(
+            [filt, *(k["kernel"] for k in out)], capture_output=True, text=True
+        ).stdout.splitlines()
+        if len(names) == len(out):
+            for k, name in zip(out, names):
+                k["kernel"] = _short_name(name)
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

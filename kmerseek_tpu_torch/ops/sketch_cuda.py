@@ -15,13 +15,17 @@ launchers. For a padded ``(B, L)`` residue batch and every window
 Each wrapper launches its hand-written kernel (built at first use) on a
 CUDA tensor and takes its plain PyTorch version (``*_ref``, built from
 ``ops.murmur3.murmur64_kmer_windows``) on a CPU tensor. Launches are
-counted in ``<wrapper>.launches``.
+counted in ``<wrapper>.launches``. The masked kernel has k compiled in
+for ``COMPILED_KS`` and a run-time-k version for every other k up to
+128; it reads its 256-byte LUT from a device table cached per moltype
+and device (``encoding_lut``) and zeroes its own counts, so a call
+costs the host two ``torch.empty`` and one ctypes call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +37,20 @@ from .u64 import le_u64
 
 SOURCE = "masked_sketch.cu"
 WINDOW_SOURCE = "window_hashes.cu"
+# the k that masked_sketch.cu's launch function has a compiled version of
+COMPILED_KS = (5, 10, 16, 24)
+
+_lut_cache: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def encoding_lut(moltype: str, device: torch.device) -> torch.Tensor:
+    """The moltype's 256-byte encoding LUT as a uint8 tensor on ``device``,
+    made once per (moltype, device)."""
+    key = (moltype, device)
+    lut = _lut_cache.get(key)
+    if lut is None:
+        lut = _lut_cache[key] = torch.from_numpy(get_encoding_lut(moltype).copy()).to(device)
+    return lut
 
 
 def _check_inputs(seqs: torch.Tensor, lengths: torch.Tensor, k: int) -> None:
@@ -59,8 +77,7 @@ def window_hashes_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: ``(hashes (B, W) int64, keep (B, W) bool)``."""
     _check_inputs(seqs, lengths, k)
-    lut = torch.from_numpy(get_encoding_lut(moltype)).to(seqs.device)
-    h = murmur64_kmer_windows(lut[seqs.long()], k, seed)
+    h = murmur64_kmer_windows(encoding_lut(moltype, seqs.device)[seqs.long()], k, seed)
     win = torch.arange(h.shape[-1], device=seqs.device)
     in_range = win[None, :] < (lengths.long() - (k - 1))[:, None]
     return h, in_range & le_u64(h, max_hash_for_scaled(scaled))
@@ -81,10 +98,22 @@ def masked_window_keys_ref(
     return keys, keep.sum(dim=1, dtype=torch.int32)
 
 
-def _launch_fn(source: str, symbol: str):
-    """The C launch function ``symbol`` of ``csrc/<source>``; both hash
-    kernels take (seqs, lengths, out0, out1, B, L, k, max_hash, seed,
-    lut, stream)."""
+def _launch(source, symbol, what, seqs, lengths, out0, out1, k, scaled, moltype, seed):
+    """Check a CUDA input pair and launch one hash kernel into out0/out1.
+    Both take (seqs, lengths, out0, out1, B, L, k, max_hash, seed, lut,
+    stream); the masked kernel reads ``lut`` on the device, the
+    window-hash kernel takes a host table."""
+    _check_inputs(seqs, lengths, k)
+    if not (seqs.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("seqs and lengths must be contiguous")
+    B, L = seqs.shape
+    if B == 0:
+        return
+    if source == SOURCE:
+        lut_ptr = encoding_lut(moltype, seqs.device).data_ptr()
+    else:
+        lut = np.ascontiguousarray(get_encoding_lut(moltype))
+        lut_ptr = lut.ctypes.data
     lib = cuda_build.load(source)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
@@ -95,25 +124,12 @@ def _launch_fn(source: str, symbol: str):
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    return lib, fn
-
-
-def _launch(source, symbol, what, seqs, lengths, out0, out1, k, scaled, moltype, seed):
-    """Check a CUDA input pair and launch one hash kernel into out0/out1."""
-    _check_inputs(seqs, lengths, k)
-    if not (seqs.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("seqs and lengths must be contiguous")
-    B, L = seqs.shape
-    if B == 0:
-        return
-    lut = np.ascontiguousarray(get_encoding_lut(moltype))
-    lib, fn = _launch_fn(source, symbol)
     with torch.cuda.device(seqs.device):
         stream = torch.cuda.current_stream(seqs.device).cuda_stream
         code = fn(
             seqs.data_ptr(), lengths.data_ptr(), out0.data_ptr(), out1.data_ptr(),
             B, L, k, max_hash_for_scaled(scaled), seed & ((1 << 64) - 1),
-            lut.ctypes.data, stream,
+            lut_ptr, stream,
         )
     cuda_build.check(lib, code, what)
 
@@ -145,7 +161,7 @@ def masked_window_keys(
         raise ValueError(f"unsupported device {seqs.device}")
     B, L = seqs.shape
     keys = torch.empty((B, max(L - k + 1, 0)), dtype=torch.int64, device=seqs.device)
-    n_kept = torch.zeros((B,), dtype=torch.int32, device=seqs.device)
+    n_kept = torch.empty((B,), dtype=torch.int32, device=seqs.device)  # the launch zeroes it
     _launch(SOURCE, "masked_window_keys_launch", "masked_window_keys",
             seqs, lengths, keys, n_kept, k, scaled, moltype, seed)
     if B:

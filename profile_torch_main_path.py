@@ -36,6 +36,11 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke
 
 
+# the port's hand-written kernels, as the profiler names them
+OWN_KERNELS = ("masked_sketch_kernel", "window_hashes_kernel", "sort_warp_kernel",
+               "sort_tile_kernel", "sort_global_kernel")
+
+
 def _device_us(prof) -> tuple:
     """(summed device time in us, [(name, us, calls)] by kernel): the
     device-side events only — kernels, memcpy, memset — so that an
@@ -69,7 +74,7 @@ def run(label: str, args: list, out_dir: str) -> None:
         f"{label}: wall {wall:.3f} s under both profilers; device busy "
         f"{dev_us / 1e3:.3f} ms = {dev_us / 1e4 / wall:.4f}% of wall"
     )
-    sketch = [r for r in rows if any(n in r[0] for n in ("sketch_kernel", "window_hashes", "bitonic"))]
+    sketch = [r for r in rows if any(n in r[0] for n in OWN_KERNELS)]
     for name, us, n in rows[:8] + [r for r in sketch if r not in rows[:8]]:
         chip_smoke.log(f"  device {us / 1e3:9.3f} ms  {n:5d} calls  {name[:90]}")
     buf = io.StringIO()

@@ -8,7 +8,9 @@
 * each CUDA wrapper given a CPU tensor takes the plain version and
   counts no launch;
 * a kernel library's name changes with every header its source
-  includes, so an edited shared header rebuilds it.
+  includes, so an edited shared header rebuilds it;
+* the build module reads registers, shared memory and spills out of
+  what ``nvcc -Xptxas -v`` prints.
 """
 
 import os
@@ -29,7 +31,7 @@ names = [m.name for m in pkgutil.walk_packages(kmerseek_tpu_torch.__path__, "kme
          if m.name != "kmerseek_tpu_torch.__main__"]
 for n in names:
     importlib.import_module(n)
-import chip_smoke, profile_torch_main_path
+import chip_smoke, profile_torch_main_path, bench_torch_kernels_ab
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "kmerseek_tpu" or m.startswith("kmerseek_tpu."))
 print(len(names), bad)
@@ -128,3 +130,28 @@ def test_library_name_follows_included_headers(tmp_path):
     assert after["masked_sketch.cu"] != before["masked_sketch.cu"]
     assert after["window_hashes.cu"] != before["window_hashes.cu"]
     assert after["bitonic_sort.cu"] == before["bitonic_sort.cu"]
+
+
+def test_ptxas_report_is_parsed():
+    from kmerseek_tpu_torch.ops import cuda_build
+
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN1a4sortILi5ELb1EEEvPKy' for 'sm_90a'
+ptxas info    : Function properties for _ZN1a4sortILi5ELb1EEEvPKy
+    24 bytes stack frame, 20 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 1488 bytes smem, 416 bytes cmem[0]
+ptxas info    : Compiling entry function 'plain' for 'sm_90a'
+ptxas info    : Function properties for plain
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, 380 bytes cmem[0]
+"""
+    assert cuda_build.parse_ptxas(text) == [
+        {"kernel": "_ZN1a4sortILi5ELb1EEEvPKy", "stack_bytes": 24, "spill_store_bytes": 20,
+         "spill_load_bytes": 36, "registers": 64, "smem_bytes": 1488},
+        {"kernel": "plain", "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "registers": 16, "smem_bytes": 0},
+    ]
+    short = cuda_build._short_name
+    assert short("void <unnamed>::sort_tile_kernel<(int)5, (bool)1>(const unsigned long long *, int)") == "sort_tile_kernel<5, 1>"
+    assert short("(anonymous namespace)::window_hashes_kernel(unsigned char const*, int)") == "window_hashes_kernel"
+    assert "-Xptxas" in cuda_build.NVCC_FLAGS
