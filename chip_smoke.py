@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, kernel checks,
-and the port's three paths at the scale of a human reference proteome.
+and the port's four paths at the scale of a human reference proteome.
 
     python3 chip_smoke.py [--seed N] [--kernels-only]
 
@@ -14,10 +14,12 @@ Phases (each prints its lines; any failure exits non-zero):
    parallel);
 3. kernels vs their plain versions on the card, tolerance 0:
    ``masked_window_keys`` and ``window_hashes`` for 3 moltypes × 6
-   (k, scaled) — the masked kernel's compiled k and two it runs with k
-   at run time — × 5 shapes (tiles of 64, 128 and 256 threads, a padded
-   length and a window count that are odd, rows shorter than k; plus
-   sampled windows against the scalar murmur oracle);
+   (k, scaled) — the kernels' compiled k and two they run with k at run
+   time — × 6 shapes (tiles of 64, 128 and 256 threads, odd and even
+   window counts, rows starting at every alignment the vector stores
+   test, rows of length 0, below k and L; ``hashes`` and ``keep`` on
+   the whole arrays, windows past a row's length included; plus sampled
+   windows against the scalar murmur oracle);
    ``bitonic_sort_rows`` over every width class of its design (one-warp
    rows, one-block rows, cluster rows up to 131,072 keys, rows merged
    through device memory), at widths that are not powers of two, B = 1
@@ -57,7 +59,17 @@ Phases (each prints its lines; any failure exits non-zero):
    every reported pair and is 0 on every other; ``entry()``'s forward
    gives the same outputs on the card and the CPU. All three kernels
    launched;
-7. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+7. path C, multisearch and the dense inverted engine (plain PyTorch and
+   numpy: no kernel of the port runs here, and the launch counts stay
+   0), on the main path's ``.sig.zip`` files at full size:
+   ``do_multisearch`` on the card and with ``device="cpu"`` writes the
+   same 16-column CSV bytes; ``write_search_csv_columns`` on the
+   manysearch columns equals ``write_search_csv`` and the main path's
+   search CSV byte for byte; ``_device_pair_stats`` (1,024 x 20,000)
+   equals the host join's counts and weighted sums scattered into
+   matrices, in full; its first 2,048 columns equal path B's
+   ``pairwise_stats`` counts;
+8. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last. A kernel's
    ``launches`` counts its wrapper's calls; one sort call is one grid up
    to 131,072 keys a row (``ops.sort_cuda.sort_grid_launches``).
@@ -109,14 +121,17 @@ from kmerseek_tpu_torch.ops.u64 import sort_key
 
 AA = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 MOLTYPES = ("protein", "dayhoff", "hp")
-# the masked kernel has k = 5, 10, 16, 24 compiled in; 12 and 40 run its
+# both hash kernels have k = 5, 10, 16, 24 compiled in; 12 and 40 run their
 # run-time-k version
 K_SCALED = ((5, 1), (10, 1), (16, 5), (24, 5), (12, 1), (40, 5))
+# tiles of 256 threads (W > 512), 128 ("mid") and 64 ("narrow"); over the six
+# k each shape gives odd and even window counts W, so with four rows or more
+# rows start at every alignment of row * W mod 4 that the vector stores test
 HASH_SHAPES = {
     "1024x1024": (1024, 1024), "8x32768": (8, 32768), "ragged": (16, 1024),
-    "narrow": (9, 256), "odd": (5, 1531),
+    "mid": (6, 500), "narrow": (9, 256), "odd": (5, 1531),
 }
-RAGGED_SHAPES = ("ragged", "narrow", "odd")  # rows 0..3 get lengths 0, k-1, k, L
+RAGGED_SHAPES = ("ragged", "mid", "narrow", "odd")  # rows 0..3 get lengths 0, k-1, k, L
 SOURCES = ("masked_sketch.cu", "window_hashes.cu", "bitonic_sort.cu")
 # (B, S, cluster blocks or None for what the device allows): one-warp rows
 # (S <= 256), one-block rows (<= 8,192), cluster rows (<= 131,072 with
@@ -277,6 +292,10 @@ def hash_kernel_checks(rng, dev) -> dict:
     unless it raised."""
     n_checked = 0
     errs = {"masked_window_keys": 0.0, "window_hashes": 0.0}
+    # (threads a block, row * W mod 4) of every checked row: which tile and
+    # which store path (16-byte hash stores need an even start, the 4-byte
+    # keep store a multiple of 4) the window-hash kernel took
+    store_cases = set()
     for label, (B, L) in HASH_SHAPES.items():
         seqs_np = AA[rng.integers(0, 20, size=(B, L))]
         lens_np = rng.integers(0, L + 1, size=B).astype(np.int32)
@@ -296,6 +315,9 @@ def hash_kernel_checks(rng, dev) -> dict:
                 rh, rkeep = window_hashes_ref(seqs, lt, **kw)
                 torch.cuda.synchronize()
                 where = f"{label} {moltype} k={k} scaled={scaled}"
+                W = L - k + 1
+                threads = 64 if W <= 256 else (128 if W <= 512 else 256)
+                store_cases.update((threads, (b * W) % 4) for b in range(min(B, 4)))
                 e_masked = max(_mismatch(keys, rkeys), _mismatch(cnt, rcnt))
                 e_window = max(_mismatch(h, rh), _mismatch(keep.to(torch.int8), rkeep.to(torch.int8)))
                 errs["masked_window_keys"] = max(errs["masked_window_keys"], e_masked)
@@ -327,8 +349,12 @@ def hash_kernel_checks(rng, dev) -> dict:
     log(
         f"hash kernel checks: {len(HASH_SHAPES) * len(MOLTYPES) * len(K_SCALED)} configs bit-equal "
         f"(k compiled into the masked kernel: 5, 10, 16, 24; at run time: 12, 40), "
-        f"{n_checked} sampled windows match the scalar oracle; max abs err {errs}"
+        f"{n_checked} sampled windows match the scalar oracle; hashes and keep compared on the whole "
+        f"(B, W) arrays, windows past a row's length included; (threads, row*W mod 4) seen: "
+        f"{sorted(store_cases)}; max abs err {errs}"
     )
+    if len(store_cases) != 12:
+        raise SystemExit(f"the hash checks missed a tile size or a store alignment: {sorted(store_cases)}")
     return errs
 
 
@@ -566,6 +592,7 @@ class Corpus:
         write_fasta(self.tfa, self.tnames, self.targets)
         write_fasta(self.qfa, self.qnames, self.queries)
         self.search_csv = os.path.join(workdir, "search.csv")
+        self.pair_counts = None  # path B: pairwise_stats' (Q, first targets) intersect counts
         lens = self.lens
         log(
             f"corpus: {len(self.targets)} targets, {int(lens.sum())} residues "
@@ -869,6 +896,7 @@ def path_b_phase(c: Corpus, n_pair_targets: int = 2048) -> dict:
     if not np.array_equal(got, want):
         n = int((got != want).sum())
         raise SystemExit(f"pairwise_stats disagrees with the search CSV on {n} pairs")
+    c.pair_counts = got  # path C holds the dense engine against it
 
     fc, ac = entry(device="cuda")
     fp, ap = entry(device="cpu")
@@ -885,6 +913,110 @@ def path_b_phase(c: Corpus, n_pair_targets: int = 2048) -> dict:
     if min(counts.values()) <= 0:
         raise SystemExit(f"path B left a kernel unlaunched: {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# path C: multisearch + the dense inverted engine
+# ---------------------------------------------------------------------------
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def path_c_phase(c: Corpus, smi: str) -> None:
+    from kmerseek_tpu_torch.core import search as search_mod
+    from kmerseek_tpu_torch.ops.inverted import inverted_search
+
+    qsig = f"{c.qfa}.hp.k24.scaled5.sig.zip"
+    tsig = f"{c.tfa}.hp.k24.scaled5.sig.zip"
+    reset_launches()
+
+    # multisearch through the file-level API, card against CPU
+    walls, outs = {}, {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(c.workdir, f"multisearch-{device}.csv")
+        t0 = time.perf_counter()
+        search_mod.do_multisearch(qsig, tsig, out, device=device)
+        torch.cuda.synchronize()
+        walls[device] = time.perf_counter() - t0
+        outs[device] = _read_bytes(out)
+    if outs["cuda"] != outs["cpu"]:
+        raise SystemExit("multisearch CSV bytes differ between the card and the CPU")
+    header, _, body = outs["cuda"].partition(b"\n")
+    n_rows = body.count(b"\n")
+    if header.decode().split(",") != search_mod.MULTISEARCH_COLUMNS or len(search_mod.MULTISEARCH_COLUMNS) != 16:
+        raise SystemExit(f"multisearch CSV header is not the 16 columns: {header!r}")
+    with open(c.search_csv) as f:
+        n_search_rows = sum(1 for _ in f) - 1
+    if n_rows != n_search_rows or n_rows <= 0:
+        raise SystemExit(f"multisearch wrote {n_rows} rows, the main path's search {n_search_rows}")
+
+    # the column-native CSV writer against the row writer, on the
+    # manysearch columns of the main path's pair of indexes
+    query = search_mod._as_index(qsig, device="cuda")
+    target = ProteomeIndex.load(f"{tsig}.ksx", device="cuda")
+    cols = search_mod.manysearch_columns(query, target)
+    by_cols, by_rows = (os.path.join(c.workdir, n) for n in ("cols.csv", "rows.csv"))
+    t0 = time.perf_counter()
+    search_mod.write_search_csv_columns(cols, by_cols)
+    t_cols = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    search_mod.write_search_csv(search_mod._rows_from_columns(cols), search_mod.MANYSEARCH_COLUMNS, by_rows)
+    t_rows = time.perf_counter() - t0
+    if not (_read_bytes(by_cols) == _read_bytes(by_rows) == _read_bytes(c.search_csv)):
+        raise SystemExit("write_search_csv_columns, write_search_csv and the main path's search CSV differ")
+
+    # the dense engine against the host join, every pair
+    t0 = time.perf_counter()
+    counts, weights = search_mod._device_pair_stats(query, target)
+    t_dense = time.perf_counter() - t0
+    js = search_mod._host_join(query, target, inner="ab")
+    want_c = np.zeros((len(query), len(target)), np.int32)
+    want_w = np.zeros((len(query), len(target)), np.int64)
+    want_c[js.seg_q, js.seg_t] = js.seg_n
+    want_w[js.seg_q, js.seg_t] = np.add.reduceat(js.pab, js.starts)
+    if counts.shape != want_c.shape or counts.dtype != np.int32 or weights.dtype != np.int32:
+        raise SystemExit(f"_device_pair_stats returned {counts.dtype}{counts.shape}, {weights.dtype}")
+    if not np.array_equal(counts, want_c):
+        raise SystemExit(f"dense engine counts differ from the host join on {int((counts != want_c).sum())} pairs")
+    if not np.array_equal(weights, want_w.astype(np.int32)):
+        raise SystemExit("dense engine weighted sums differ from the host join")
+    n_sub = c.pair_counts.shape[1]
+    row_of = {name: i for i, name in enumerate(query.names)}
+    rows = [row_of[name] for name in c.qnames]  # path B's rows are in FASTA order
+    if not np.array_equal(counts[rows, :n_sub], c.pair_counts):
+        raise SystemExit(f"dense engine counts differ from pairwise_stats on the first {n_sub} targets")
+
+    # the engine alone, results left on the card: one 1,024-query block
+    q_keys, q_valid = query.dense_device_keys()
+    inverted_search(target, q_keys, q_valid)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        inverted_search(target, q_keys, q_valid)
+    torch.cuda.synchronize()
+    t_block = (time.perf_counter() - t0) / reps
+    counts_c = launches()
+    log(
+        f"path C ({smi}): do_multisearch {len(query)} x {len(target)} from .sig.zip to CSV "
+        f"{walls['cuda']:.2f} s on the card, {walls['cpu']:.2f} s with device=cpu (host clock, incl. "
+        f"reading both archives); {n_rows} rows x 16 columns, {len(outs['cuda'])} B, identical; "
+        f"column CSV writer {t_cols:.2f} s against {t_rows:.2f} s for rows + row writer, both equal "
+        f"to the main path's search CSV"
+    )
+    log(
+        f"path C ({smi}): dense engine {len(query)} x {len(target)} (S = {q_keys.shape[1]} slots, "
+        f"{target.inverted.n_postings} postings, max_run {target.inverted.max_run}): "
+        f"{t_block * 1e3:.2f} ms a block with the matrices left on the card = "
+        f"{len(query) / t_block:.0f} queries/s; {t_dense:.3f} s through _device_pair_stats "
+        f"(query block upload and both matrices copied to the host); counts and weighted sums equal "
+        f"the host join on all {counts.size} pairs ({int((want_c > 0).sum())} hit pairs, "
+        f"{int(want_c.sum())} shared hashes) and pairwise_stats on the first {n_sub} targets; "
+        f"launches {counts_c} (no kernel of the port is on this path)"
+    )
 
 
 def main() -> int:
@@ -933,6 +1065,9 @@ def main() -> int:
         t0 = time.perf_counter()
         entries["bitonic_sort_rows"]["launches"] = path_b_phase(c)["bitonic_sort_rows"]
         log(f"path B phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        path_c_phase(c, smi)
+        log(f"path C phase: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)

@@ -1,23 +1,42 @@
-"""Sketch-vs-sketch search: manysearch statistics (counterpart of
-``kmerseek_tpu/core/search.py``; multisearch is not ported yet).
+"""Sketch-vs-sketch search: manysearch / multisearch statistics
+(counterpart of ``kmerseek_tpu/core/search.py``).
 
 The intersection is a vectorized host join through the target's
-inverted postings; the 22 columns are assembled on host in f64,
+inverted postings; the columns are assembled on host in f64,
 byte-for-byte as the JAX package writes them. The join is cross-checked
 against the device's sparse hit-list engine (``ops.sparse_search``) on
-the index's device (``_validate_with_device``).
+the index's device (``_validate_with_device``); the dense ``(Q, T)``
+engine (``_device_pair_stats`` over ``ops.inverted.inverted_search``)
+is the oracle that tests and sharded search compare against.
 
-Column contract (exact): the 22 manysearch columns of kmerseek's
-golden CSV. Abundance stats are the *target* abundances over the
-intersection; ``total_weighted_hashes`` is the target's total
-abundance. ANI columns follow sourmash: containment^(1/minhash_ksize)
-with minhash_ksize = 3·protein_k.
+Column contracts (exact):
+
+* manysearch — the 22 columns of kmerseek's golden CSV. Abundance stats
+  are the *target* abundances over the intersection;
+  ``total_weighted_hashes`` is the target's total abundance.
+* multisearch — 16 columns, with
+
+    prob_overlap        = Σ_{h∈I} (q_ab(h)/Σ_q ab) · (db_ab(h)/Σ_db ab)
+    prob_overlap_adjusted = prob_overlap · n_queries · n_targets
+    containment_adjusted  = containment / prob_overlap_adjusted
+    tf_idf_score        = Σ_{h∈I} (q_ab(h)/Σ_q ab) · (1 + ln((1+N)/(1+df(h))))
+
+  (N = number of target sketches, df = how many target sketches contain
+  h, db_ab = summed abundance of h across targets), each sum taken over
+  the intersection in ascending hash order.
+
+ANI columns follow sourmash: containment^(1/minhash_ksize) with
+minhash_ksize = 3·protein_k.
+
+The file-level entry points (``do_manysearch``, ``do_multisearch``) run
+their device stages on the CUDA device unless ``device="cpu"`` is given.
 """
 
 from __future__ import annotations
 
 import csv
 import gc
+import io
 import math
 import os
 import sys
@@ -55,6 +74,43 @@ MANYSEARCH_COLUMNS = [
     "containment_target_in_query",
     "f_weighted_target_in_query",
 ]
+
+MULTISEARCH_COLUMNS = [
+    "query_name",
+    "query_md5",
+    "match_name",
+    "match_md5",
+    "containment",
+    "max_containment",
+    "jaccard",
+    "intersect_hashes",
+    "ksize",
+    "scaled",
+    "moltype",
+    "prob_overlap",
+    "prob_overlap_adjusted",
+    "containment_adjusted",
+    "containment_adjusted_log10",
+    "tf_idf_score",
+]
+
+
+def _device_pair_stats(query: ProteomeIndex, target: ProteomeIndex):
+    """``(Q, T)`` int32 intersect counts and target-weighted sums from the
+    dense inverted engine (``ops.inverted.inverted_search``) on
+    ``target.device``, as numpy arrays.
+
+    The dense reference engine: production validation runs the sparse
+    hit-list engine (``_validate_with_device``), which never fetches a
+    ``(Q, T)`` matrix; this one is what the engine-equality tests and
+    sharded search are held against."""
+    from ..ops.inverted import inverted_search
+
+    q_keys, q_valid = query.dense_device_keys()
+    counts, weights = inverted_search(
+        target, q_keys.to(target.device), q_valid.to(target.device)
+    )
+    return counts.cpu().numpy(), weights.cpu().numpy()
 
 
 class _DbHashStats:
@@ -156,7 +212,7 @@ class _JoinSegments:
     One ``searchsorted`` of every query hash into the target's distinct
     database hashes expands to (q_row, target, abundance) tuples —
     one per query-hash/target co-occurrence — which, sorted by
-    (q_row, target, abundance), form contiguous segments: exactly the
+    (q_row, target, <inner>), form contiguous segments: exactly the
     hit pairs with ≥1 shared hash. All per-pair statistics then fall out
     of segmented reductions (``np.add.reduceat``)."""
 
@@ -211,21 +267,35 @@ def _join_tuples(query: ProteomeIndex, inv):
     return pq, pt, pab, qhash, posc
 
 
-def _segments_from_tuples(pq, pt, pab, qhash, nq: int, T: int, qpos) -> _JoinSegments:
-    """Sort flat tuples into contiguous (q, t) segments, ascending
-    target abundance within a segment (enables O(1) segmented medians).
-    Equal full keys are interchangeable downstream."""
+def _segments_from_tuples(
+    pq, pt, pab, qhash, qm, nq: int, T: int, inner: str, qpos
+) -> _JoinSegments:
+    """Sort flat tuples into contiguous (q, t) segments.
+
+    ``inner`` picks the within-segment tuple order (see ``_host_join``).
+    The sort key totally orders everything downstream consumes (equal
+    keys are interchangeable), so the result does not depend on the
+    order of the input tuples."""
     total = len(pq)
     if total == 0:
         z = np.zeros(0, np.int64)
         return _JoinSegments(z, z, z, z, z, z, z, qpos, 0)
-    if nq * T < 2**32:
+    if inner == "ab" and nq * T < 2**32:
         # one packed int64 key: (pq, pt) fits 32 bits by the guard, pab
         # fits 31 (postings are int32 abundances)
         key = (pq * np.int64(T) + pt) * np.int64(1 << 31) + pab
         order = np.argsort(key, kind="stable")
+    elif inner == "hash" and nq * T * max(len(qm), 1) < 2**62:
+        # qhash is an index into query.mins, which is sorted ascending
+        # (and distinct) within each query row — so within a (pq, pt)
+        # segment, qhash order IS hash-value order, and (pq, pt, qhash)
+        # is a unique total key (a hash occurs at most once per target's
+        # sketch)
+        key = (pq * np.int64(T) + pt) * np.int64(max(len(qm), 1)) + qhash
+        order = np.argsort(key, kind="stable")
     else:
-        order = np.lexsort((pab, pt, pq))
+        inner_key = pab if inner == "ab" else qm[qhash]
+        order = np.lexsort((inner_key, pt, pq))
     pq, pt, pab, qhash = pq[order], pt[order], pab[order], qhash[order]
     new = np.empty(total, bool)
     new[0] = True
@@ -238,10 +308,17 @@ def _segments_from_tuples(pq, pt, pab, qhash, nq: int, T: int, qpos) -> _JoinSeg
     )
 
 
-def _host_join(query: ProteomeIndex, target: ProteomeIndex) -> _JoinSegments:
-    """Vectorized intersection join via the target's inverted index."""
+def _host_join(query: ProteomeIndex, target: ProteomeIndex, inner: str) -> _JoinSegments:
+    """Vectorized intersection join via the target's inverted index.
+
+    ``inner`` picks the within-segment tuple order: ``"ab"`` (ascending
+    target abundance — enables O(1) segmented medians) or ``"hash"``
+    (ascending hash value — the per-hash summation order of the
+    multisearch probability scores)."""
     pq, pt, pab, qhash, posc = _join_tuples(query, target.inverted)
-    return _segments_from_tuples(pq, pt, pab, qhash, len(query), len(target), posc)
+    return _segments_from_tuples(
+        pq, pt, pab, qhash, query.mins, len(query), len(target), inner, posc
+    )
 
 
 # per-(query, target) validated-block counters (weak-keyed: retired
@@ -351,7 +428,7 @@ def manysearch_columns(
         target.config.moltype,
     ):
         raise ValueError("query/target sketch parameters differ")
-    js = _host_join(query, target)
+    js = _host_join(query, target, inner="ab")
     if js.total == 0:
         return {c: [] for c in MANYSEARCH_COLUMNS}
     t_sizes = np.diff(target.offsets)
@@ -463,6 +540,238 @@ def _assemble_manysearch_columns(
     }
 
 
+def multisearch(
+    query: ProteomeIndex,
+    target: ProteomeIndex,
+    threshold: float = 0.0,
+    estimate_prob_overlap: bool = True,
+) -> List[Dict]:
+    """Pairwise scoring with database-frequency statistics (the
+    ``do_multisearch`` variant)."""
+    return _rows_from_columns(
+        multisearch_columns(query, target, threshold, estimate_prob_overlap)
+    )
+
+
+def multisearch_columns(
+    query: ProteomeIndex,
+    target: ProteomeIndex,
+    threshold: float = 0.0,
+    estimate_prob_overlap: bool = True,
+) -> Dict[str, list]:
+    """Column-native multisearch (see ``manysearch_columns``)."""
+    k3 = minhash_ksize(query.config.ksize)
+    n_targets = len(target)
+    n_comparisons = float(len(query) * n_targets)
+
+    # flat join, tuples ordered by hash within each (query, target)
+    # segment: the probability terms are summed per ascending hash
+    js = _host_join(query, target, inner="hash")
+    if js.total == 0:
+        cols = MULTISEARCH_COLUMNS if estimate_prob_overlap else MULTISEARCH_COLUMNS[:11]
+        return {c: [] for c in cols}
+
+    # per-hash document frequency + summed abundance, cached per index
+    # (``_db_hash_stats``) and shared with the join
+    st_db = _db_hash_stats(target.inverted)
+    df_arr = st_db.df
+    db_ab_arr = st_db.db_ab
+    sum_db_ab = st_db.sum_db_ab
+    weighted = np.add.reduceat(js.pab, js.starts)
+    _validate_with_device(query, target, js, weighted)
+
+    q_sizes = np.diff(query.offsets)
+    t_sizes = np.diff(target.offsets)
+    sum_q_ab = np.add.reduceat(
+        np.append(query.abundances, 0), query.offsets[:-1]
+    ).astype(np.float64)
+
+    # per-tuple tf / probability / tf-idf terms, reduced per segment on
+    # the host in f64, in tuple order (any other order changes the last
+    # bits); the distinct-hash position of every query hash is already
+    # known from the join probe
+    dbpos = js.qpos[js.qhash]
+    tf = query.abundances[js.qhash].astype(np.float64) / sum_q_ab[js.seg_q[js.seg_id]]
+    prob = np.add.reduceat(tf * (db_ab_arr[dbpos] / sum_db_ab), js.starts)
+    tfidf = np.add.reduceat(
+        tf * (1.0 + np.log((1.0 + n_targets) / (1.0 + df_arr[dbpos]))), js.starts
+    )
+
+    qs = q_sizes[js.seg_q]
+    ts = t_sizes[js.seg_t]
+    containment = js.seg_n / qs
+    keep = containment >= threshold
+    c_tq = js.seg_n / ts
+    jaccard = js.seg_n / (qs + ts - js.seg_n)
+
+    return _assemble_multisearch_columns(
+        query, target, js.seg_q, js.seg_t, js.seg_n,
+        containment, c_tq, jaccard, prob, tfidf, keep,
+        k3, n_comparisons, estimate_prob_overlap,
+    )
+
+
+def _assemble_multisearch_columns(
+    query,
+    target,
+    seg_q: np.ndarray,
+    seg_t: np.ndarray,
+    seg_n: np.ndarray,
+    containment: np.ndarray,
+    c_tq: np.ndarray,
+    jaccard: np.ndarray,
+    prob: np.ndarray,
+    tfidf: np.ndarray,
+    keep: np.ndarray,
+    k3: int,
+    n_comparisons: float,
+    estimate_prob_overlap: bool,
+) -> Dict[str, list]:
+    """Per-pair statistics → the 16 multisearch columns (the first 11
+    without ``estimate_prob_overlap``).
+
+    Emit order and column assembly mirror
+    ``_assemble_manysearch_columns``. ``target`` only needs the metadata
+    surface (``__len__``, ``names_array``, ``md5_array``,
+    ``name_ranks``)."""
+    kept = np.flatnonzero(keep)
+    n_tranks = np.int64(len(target)) + 1
+    kept = kept[
+        np.argsort(
+            query.name_ranks[seg_q[kept]] * n_tranks
+            + target.name_ranks[seg_t[kept]],
+            kind="stable",
+        )
+    ]
+
+    sq = seg_q[kept]
+    st = seg_t[kept]
+    cont = containment[kept]
+    n = len(sq)
+    scaled = query.config.scaled
+    moltype = query.config.moltype
+    cols = {
+        "query_name": query.names_array[sq].tolist(),
+        "query_md5": query.md5_array[sq].tolist(),
+        "match_name": target.names_array[st].tolist(),
+        "match_md5": target.md5_array[st].tolist(),
+        "containment": cont,
+        "max_containment": np.maximum(cont, c_tq[kept]),
+        "jaccard": jaccard[kept],
+        "intersect_hashes": seg_n[kept].astype(np.float64),
+        "ksize": np.full(n, k3, np.int64),
+        "scaled": np.full(n, scaled, np.int64),
+        "moltype": [moltype] * n,
+    }
+    if not estimate_prob_overlap:
+        return cols
+    prob_k = prob[kept]
+    pa = prob_k * n_comparisons
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ca = np.where(pa != 0.0, cont / pa, 0.0)
+    cols["prob_overlap"] = prob_k
+    cols["prob_overlap_adjusted"] = pa
+    cols["containment_adjusted"] = ca
+    # scalar libm log10 per row on purpose: numpy's SIMD transcendental
+    # can differ in the last ulp
+    cols["containment_adjusted_log10"] = np.array(
+        [
+            math.log10(r) if r > 0.0 else 0.0
+            for r in np.where(cont > 0.0, ca, 0.0).tolist()
+        ],
+        np.float64,
+    )
+    cols["tf_idf_score"] = tfidf[kept]
+    return cols
+
+
+def _as_index(obj, ksize=None, scaled=None, moltype=None, device=None) -> ProteomeIndex:
+    """Accept a ProteomeIndex, a .sig.zip path, or an entity with a
+    ``.sig`` product path.
+
+    Like branchwater, sketches are *selected* by the requested
+    (ksize, scaled, moltype) — an archive may carry several parameter
+    sets; only matching signatures participate. Raises when the
+    selection is empty (parameter mismatch) or spans several parameter
+    sets. An index made here runs its device stages on ``device``
+    (default: the CUDA device); a ProteomeIndex keeps its own."""
+    if isinstance(obj, ProteomeIndex):
+        _check_requested_params(obj, ksize, scaled, moltype)
+        return obj
+    if hasattr(obj, "sig"):
+        obj = obj.sig
+    from .sigzip import read_sig_zip
+
+    sigs = read_sig_zip(str(obj))
+    selected = [
+        s
+        for s in sigs
+        if (ksize is None or s.ksize == ksize)
+        and (scaled is None or s.scaled == scaled)
+        and (moltype is None or s.moltype == moltype)
+    ]
+    if not selected:
+        have = sorted({(s.moltype, s.ksize, s.scaled) for s in sigs})
+        raise ValueError(
+            f"no signatures in {obj} match "
+            f"(moltype={moltype}, ksize={ksize}, scaled={scaled}); "
+            f"archive has {have}"
+        )
+    params = sorted({(s.moltype, s.ksize, s.scaled) for s in selected})
+    if len(params) > 1:
+        raise ValueError(
+            f"{obj} holds signatures with several sketch parameter sets "
+            f"{params}; pass explicit moltype/ksize/scaled to select one"
+        )
+    return ProteomeIndex.from_signatures(selected, device=device)
+
+
+def do_manysearch(
+    query, target, output, ksize=None, scaled=None, moltype=None, *, device=None
+):
+    """File-level manysearch: query/target .sig.zip (or entities) → CSV
+    (parquet for a ``.parquet``/``.pq`` output).
+
+    Argument order mirrors kmerseek's ``do_manysearch(query, target,
+    output, ksize, scaled, moltype)``; threshold is 0 to show all
+    matches, even with only 1 k-mer. Signatures are selected from the
+    archives by the requested parameters (branchwater semantics).
+    ``device``: where the device stages run (default: the CUDA device;
+    without one this raises unless ``device="cpu"``)."""
+    q = _as_index(query, ksize, scaled, moltype, device)
+    t = _as_index(target, ksize, scaled, moltype, device)
+    cols = manysearch_columns(q, t, threshold=0.0)
+    _write_output(cols, output)
+    return _rows_from_columns(cols)
+
+
+def do_multisearch(
+    query, target, output, moltype=None, ksize=None, scaled=None, *, device=None
+):
+    """File-level multisearch with probability-of-overlap scoring.
+
+    Mirrors kmerseek's ``do_multisearch(query, target, output, moltype,
+    ksize, scaled)``; threshold 0, prob_overlap estimated. ``device`` as
+    for ``do_manysearch``."""
+    q = _as_index(query, ksize, scaled, moltype, device)
+    t = _as_index(target, ksize, scaled, moltype, device)
+    cols = multisearch_columns(q, t, threshold=0.0, estimate_prob_overlap=True)
+    _write_output(cols, output)
+    return _rows_from_columns(cols)
+
+
+def _check_requested_params(index: ProteomeIndex, ksize, scaled, moltype):
+    got = index.config
+    if ksize is not None and ksize != got.ksize:
+        raise ValueError(f"requested ksize {ksize}, archive has {got.ksize}")
+    if scaled is not None and scaled != got.scaled:
+        raise ValueError(f"requested scaled {scaled}, archive has {got.scaled}")
+    if moltype is not None and moltype != got.moltype:
+        raise ValueError(
+            f"requested moltype {moltype}, archive has {got.moltype}"
+        )
+
+
 def _rows_from_columns(cols: Dict[str, list]) -> List[Dict]:
     """{column: list} → list of per-row dicts (same key order).
 
@@ -492,11 +801,92 @@ def _format_value(v) -> str:
     return str(v)
 
 
+def _format_column(vals: list) -> list:
+    """One column → CSV cell strings, quoting applied.
+
+    Floats via ``repr`` of the builtin float (shortest round-trip, as
+    the rows path writes them). Numeric-derived strings never need
+    quoting; string columns get ``csv`` QUOTE_MINIMAL semantics (quote
+    if the value holds a delimiter, quote, or newline; embedded quotes
+    doubled) — byte-identical to ``csv.writer`` output."""
+    if len(vals) == 0:
+        return []
+    if isinstance(vals, np.ndarray):
+        # .tolist() yields builtin scalars
+        if vals.dtype.kind == "f":
+            return list(map(repr, vals.tolist()))
+        return list(map(str, vals.tolist()))
+    v0 = vals[0]
+    if isinstance(v0, float):
+        return list(map(repr, vals))
+    if isinstance(v0, str):
+        return [
+            '"' + s.replace('"', '""') + '"'
+            if ('"' in s or "," in s or "\n" in s or "\r" in s)
+            else s
+            for s in vals
+        ]
+    return list(map(str, vals))
+
+
+# rows per write block — bounds peak string memory on huge outputs
+_CSV_BLOCK_ROWS = 65536
+
+
+def write_search_csv_columns(
+    cols: Dict[str, list], filename: Optional[str] = None
+) -> None:
+    """Stream a column-native result ({column: list}) as CSV.
+
+    Formats per *column* (one type dispatch + one ``map`` each), then
+    emits blocks of ``",".join``-ed rows in bounded memory; no per-row
+    dicts. Byte-identical to ``write_search_csv``."""
+    formatted = [_format_column(v) for v in cols.values()]
+    n = len(formatted[0]) if formatted else 0
+
+    def _emit(fh):
+        fh.write(",".join(cols.keys()) + "\n")
+        for lo in range(0, n, _CSV_BLOCK_ROWS):
+            rows = zip(*(c[lo:lo + _CSV_BLOCK_ROWS] for c in formatted))
+            fh.write("\n".join(",".join(r) for r in rows) + "\n")
+
+    if filename is None:
+        _emit(sys.stdout)
+        sys.stdout.flush()
+    else:
+        with open(filename, "w", newline="") as f:
+            _emit(f)
+
+
+def _write_output(cols: Dict[str, list], output: Optional[str]) -> None:
+    """File-API output dispatch: ``.parquet``/``.pq`` extensions get the
+    binary path, everything else (or stdout) the CSV contract."""
+    if output is not None and str(output).endswith((".parquet", ".pq")):
+        write_search_parquet(cols, output)
+    else:
+        write_search_csv_columns(cols, output)
+
+
+def write_search_parquet(cols: Dict[str, list], filename: str) -> None:
+    """Column-native result → parquet: no float-to-text formatting,
+    exact binary doubles; read back with pyarrow/pandas."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    pq.write_table(pa.table({k: pa.array(v) for k, v in cols.items()}), filename)
+
+
 def _write_rows(fh, rows: Sequence[Dict], columns: Sequence[str]) -> None:
     w = csv.writer(fh, lineterminator="\n")
     w.writerow(columns)
     for r in rows:
         w.writerow([_format_value(r[c]) for c in columns])
+
+
+def rows_to_csv(rows: Sequence[Dict], columns: Sequence[str]) -> str:
+    buf = io.StringIO()
+    _write_rows(buf, rows, columns)
+    return buf.getvalue()
 
 
 def write_search_csv(

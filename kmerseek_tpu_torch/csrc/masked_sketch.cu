@@ -44,8 +44,9 @@
 //     per block (deterministic) to a count the launch function zeroes on
 //     the same stream, so the wrapper launches no fill kernel.
 //
-// The hash lives in murmur64.cuh, shared with window_hashes.cu. Host
-// interface: plain C, bound with ctypes (no PyTorch headers).
+// The hash, the staging and the run's words live in murmur64.cuh, shared
+// with window_hashes.cu. Host interface: plain C, bound with ctypes (no
+// PyTorch headers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,25 +56,6 @@
 namespace {
 
 using namespace kmerseek;
-
-constexpr int kMaxThreads = 256;
-// encoded bytes a block stages: its windows, the halo, and what the last
-// thread's spare words and the 16-byte staging granule reach beyond them
-constexpr int kStageBytes = kMaxThreads * kRun + kMaxK + 48;
-
-__device__ __forceinline__ uint32_t encode4(uint32_t x, const unsigned char* s_lut) {
-  return (uint32_t)s_lut[x & 0xff] | ((uint32_t)s_lut[(x >> 8) & 0xff] << 8) |
-         ((uint32_t)s_lut[(x >> 16) & 0xff] << 16) | ((uint32_t)s_lut[x >> 24] << 24);
-}
-
-template <int K, int I, int NW>
-__device__ __forceinline__ void hash_run(const uint32_t (&w)[NW], uint64_t seed,
-                                         uint64_t (&h)[kRun]) {
-  if constexpr (I < kRun) {
-    h[I] = murmur64_run<K, I>(w, seed);
-    hash_run<K, I + 1>(w, seed, h);
-  }
-}
 
 // K > 0: k compiled in (the argument k equals K); K == 0: run-time k.
 template <int K>
@@ -96,33 +78,7 @@ masked_sketch_kernel(const unsigned char* __restrict__ seqs,
   const int w0 = (blockIdx.x - row * tiles_per_row) * tile;
   const unsigned char* src = seqs + (size_t)row * L;
 
-  if (tid < 64) {
-    reinterpret_cast<uint32_t*>(s_lut)[tid] = reinterpret_cast<const uint32_t*>(lut)[tid];
-  }
-  __syncthreads();
-
-  // row bytes [w0, w0 + tile + k + 16), encoded, 16 at a time; bytes past
-  // the padded row stage as lut[0] (only windows j >= W see them, and
-  // those are neither written nor counted)
-  const int nvec = (tile + k + 31) / 16;
-  for (int v = tid; v < nvec; v += nthreads) {
-    const int p = w0 + 16 * v;
-    uint4 x;
-    if (vec_in && p + 16 <= L) {
-      x = *reinterpret_cast<const uint4*>(src + p);
-    } else {
-      uint32_t b[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        if (p + i < L) b[i >> 2] |= (uint32_t)src[p + i] << (8 * (i & 3));
-      }
-      x = make_uint4(b[0], b[1], b[2], b[3]);
-    }
-    uint4 e = make_uint4(encode4(x.x, s_lut), encode4(x.y, s_lut), encode4(x.z, s_lut),
-                         encode4(x.w, s_lut));
-    *reinterpret_cast<uint4*>(s_seq + 16 * v) = e;
-  }
-  __syncthreads();
+  stage_encoded(lut, src, L, w0, tile, k, vec_in, s_lut, s_seq);
 
   const int j0 = w0 + tid * kRun;
   int n_windows = lengths[row] - (k - 1);
@@ -130,17 +86,7 @@ masked_sketch_kernel(const unsigned char* __restrict__ seqs,
   uint64_t h[kRun];
   int kept = 0;
   if (j0 < n_windows) {
-    if constexpr (K > 0) {
-      constexpr int NW = kRunWords<K>;
-      uint32_t w[NW];
-      const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s_seq) + tid * (kRun / 4);
-#pragma unroll
-      for (int n = 0; n < NW; ++n) w[n] = s32[n];
-      hash_run<K, 0>(w, seed, h);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kRun; ++i) h[i] = murmur64(s_seq + tid * kRun + i, k, seed);
-    }
+    hash_thread_run<K>(s_seq, k, seed, h);
 #pragma unroll
     for (int i = 0; i < kRun; ++i) {
       const bool keep = j0 + i < n_windows && h[i] <= max_hash;
@@ -186,7 +132,7 @@ cudaError_t launch(const void* seqs, const void* lengths, void* keys, void* n_ke
                    const void* lut, int B, int L, int k, uint64_t max_hash, uint64_t seed,
                    cudaStream_t st) {
   const int W = L - k + 1;
-  const int nthreads = W <= 64 * kRun ? 64 : (W <= 128 * kRun ? 128 : kMaxThreads);
+  const int nthreads = run_threads(W);
   const int tile = nthreads * kRun;
   const int tiles = (W + tile - 1) / tile;
   const long long blocks = (long long)tiles * B;

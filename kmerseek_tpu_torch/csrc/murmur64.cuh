@@ -1,16 +1,19 @@
 // Shared device code of the two sketch kernels (masked_sketch.cu,
 // window_hashes.cu): MurmurHash3 x64_128, first 64-bit lane, over one
-// k-byte window. One copy of the mixing steps, so the two kernels cannot
-// drift apart. `ops/cuda_build.py` hashes this header into both
-// libraries' names, so an edit here rebuilds both.
+// k-byte window, and the staging of a block's LUT-encoded bytes in shared
+// memory. One copy of the mixing steps and one of the staging, so the two
+// kernels cannot drift apart. `ops/cuda_build.py` hashes this header into
+// both libraries' names, so an edit here rebuilds both.
 //
 // The hash is integer-ALU work (about 100 32-bit instructions a window at
-// k = 24), so what the header can save is everything around it. Two ways
+// k = 24), so what the header can save is everything around it. Both
+// kernels give a thread a run of kRun adjacent windows of a tile that
+// `stage_encoded` wrote, and hash it with `hash_thread_run<K>`. Two ways
 // to feed the mixing steps their little-endian 64-bit words:
 //   * `murmur64(s, k, seed)`: k known only at run time, every word
 //     assembled byte by byte from shared memory (k loads and about 3
-//     instructions a byte). window_hashes.cu uses it for every k,
-//     masked_sketch.cu for the k it has no compiled version of.
+//     instructions a byte). Both kernels use it for the k they have no
+//     compiled version of.
 //   * `murmur64_run<K, I>(w, seed)`: K known at compile time and the
 //     thread's run of kRun adjacent windows held in registers as 32-bit
 //     words, loaded once. Window I's 64-bit word at byte offset O is two
@@ -25,13 +28,18 @@
 
 namespace kmerseek {
 
-constexpr int kTile = 256;      // window_hashes.cu: windows (threads) per block
-constexpr int kMaxK = 128;      // largest k the shared tile holds
-constexpr int kRun = 4;         // masked_sketch.cu: adjacent windows per thread
+constexpr int kMaxK = 128;        // largest k the shared tile holds
+constexpr int kRun = 4;           // adjacent windows per thread
+constexpr int kMaxThreads = 256;  // largest block; a tile is blockDim.x * kRun windows
+// encoded bytes a block stages: its windows, the halo, and what the last
+// thread's spare words and the 16-byte staging granule reach beyond them
+constexpr int kStageBytes = kMaxThreads * kRun + kMaxK + 48;
 
-struct ByteLut {
-  unsigned char v[256];
-};
+// threads of a block for rows of W windows: a 256-residue row is one
+// 64-thread block, rows beyond 512 windows take tiles of 1,024
+inline int run_threads(int W) {
+  return W <= 64 * kRun ? 64 : (W <= 128 * kRun ? 128 : kMaxThreads);
+}
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
@@ -142,18 +150,78 @@ __device__ __forceinline__ uint64_t murmur64_run(const uint32_t (&w)[NW], uint64
   return murmur_finish(h1, h2, K);
 }
 
-// ---- window_hashes.cu's staging -----------------------------------------
+// the kRun hashes of a thread's run: windows I .. kRun - 1 of w
+template <int K, int I, int NW>
+__device__ __forceinline__ void hash_run(const uint32_t (&w)[NW], uint64_t seed,
+                                         uint64_t (&h)[kRun]) {
+  if constexpr (I < kRun) {
+    h[I] = murmur64_run<K, I>(w, seed);
+    hash_run<K, I + 1>(w, seed, h);
+  }
+}
 
-// Block-wide: stage row bytes [w0, w0 + kTile + k - 1) of `src` (a row of
-// L bytes), LUT-encoded, into s_seq; bytes past the padded row read as 0
-// (only windows j >= W would see them, and those are never written).
-// s_lut must hold the table already (after a __syncthreads()).
-__device__ __forceinline__ void stage_encoded_tile(
-    const unsigned char* __restrict__ src, int L, int w0, int k,
-    const unsigned char* s_lut, unsigned char* s_seq) {
-  for (int i = threadIdx.x; i < kTile + k - 1; i += kTile) {
-    const int p = w0 + i;
-    s_seq[i] = p < L ? s_lut[src[p]] : 0;
+// ---- a block's tile of encoded bytes, and a thread's run of it ----------
+
+__device__ __forceinline__ uint32_t encode4(uint32_t x, const unsigned char* s_lut) {
+  return (uint32_t)s_lut[x & 0xff] | ((uint32_t)s_lut[(x >> 8) & 0xff] << 8) |
+         ((uint32_t)s_lut[(x >> 16) & 0xff] << 16) | ((uint32_t)s_lut[x >> 24] << 24);
+}
+
+// Block-wide (blockDim.x >= 64), ends after a __syncthreads(): copy the
+// 256-byte device table `lut` (4-byte aligned) into s_lut, then stage row
+// bytes [w0, w0 + tile + k + 16) of `src` (a row of L bytes), encoded,
+// into s_seq (kStageBytes, 16-byte aligned), 16 at a time: 16-byte global
+// loads where `vec_in` says pointer and row pitch are 16-byte aligned,
+// the LUT once per byte on the way, 16-byte shared stores. Bytes past the
+// padded row stage as lut[0]; only windows j >= W see them, and those are
+// never written.
+__device__ __forceinline__ void stage_encoded(
+    const unsigned char* __restrict__ lut, const unsigned char* __restrict__ src, int L,
+    int w0, int tile, int k, int vec_in, unsigned char* s_lut, unsigned char* s_seq) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if (tid < 64) {
+    reinterpret_cast<uint32_t*>(s_lut)[tid] = reinterpret_cast<const uint32_t*>(lut)[tid];
+  }
+  __syncthreads();
+  const int nvec = (tile + k + 31) / 16;
+  for (int v = tid; v < nvec; v += nthreads) {
+    const int p = w0 + 16 * v;
+    uint4 x;
+    if (vec_in && p + 16 <= L) {
+      x = *reinterpret_cast<const uint4*>(src + p);
+    } else {
+      uint32_t b[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (p + i < L) b[i >> 2] |= (uint32_t)src[p + i] << (8 * (i & 3));
+      }
+      x = make_uint4(b[0], b[1], b[2], b[3]);
+    }
+    uint4 e = make_uint4(encode4(x.x, s_lut), encode4(x.y, s_lut), encode4(x.z, s_lut),
+                         encode4(x.w, s_lut));
+    *reinterpret_cast<uint4*>(s_seq + 16 * v) = e;
+  }
+  __syncthreads();
+}
+
+// Hashes of this thread's run, windows [kRun * tid, kRun * tid + kRun) of
+// the staged tile. K > 0: k compiled in, the run's bytes read once as
+// 32-bit words (lane stride one word: no bank conflicts) and cut with
+// funnel shifts; K == 0: k at run time, byte by byte.
+template <int K>
+__device__ __forceinline__ void hash_thread_run(const unsigned char* s_seq, int k,
+                                                uint64_t seed, uint64_t (&h)[kRun]) {
+  const int tid = threadIdx.x;
+  if constexpr (K > 0) {
+    constexpr int NW = kRunWords<K>;
+    uint32_t w[NW];
+    const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s_seq) + tid * (kRun / 4);
+#pragma unroll
+    for (int n = 0; n < NW; ++n) w[n] = s32[n];
+    hash_run<K, 0>(w, seed, h);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) h[i] = murmur64(s_seq + tid * kRun + i, k, seed);
   }
 }
 

@@ -13,14 +13,25 @@
 //
 // What bounds it on this card: integer ALU, as for masked_sketch.cu (same
 // ~100 32-bit integer instructions per window against 1 byte read and
-// 9 bytes written: 8 of hash, 1 of keep).
-//
-// What the design does about it (the masked kernel's first design; its
-// rolling-word redesign is not taken here yet): one thread per window
-// with native 64-bit arithmetic through the run-time-k hash of
-// murmur64.cuh, the row segment plus its k-1 halo staged encoded in
-// shared memory, coalesced 8-byte hash stores and 1-byte keep stores
-// straight into a torch.bool tensor.
+// 9 bytes written: 8 of hash, 1 of keep). So the design is the masked
+// kernel's, with two outputs and no window skipped:
+//   * Four adjacent windows a thread, rolling words: the run's encoded
+//     bytes are read from shared memory once as 32-bit words and each
+//     window's 64-bit words cut out with funnel shifts (murmur64.cuh).
+//     k compiled in for k = 5, 10, 16 and 24; every other k <= kMaxK runs
+//     the run-time version (K = 0) over the same tile.
+//   * Tiles of 256 to 1,024 windows a block (64, 128 or 256 threads by the
+//     row's window count), staged by `stage_encoded`: 16-byte global loads,
+//     the LUT (a cached device table, read by pointer) applied once per
+//     byte, 16-byte shared stores.
+//   * A thread's four hashes leave as two 16-byte stores where its first
+//     hash is 16-byte aligned (`row * W + j0` even), and its four keep
+//     flags as one 4-byte store (0/1 bytes in window order: what four bool
+//     stores would write) where `row * W + j0` is a multiple of 4; a warp
+//     then writes 128 adjacent keep bytes. W is odd for most (L, k), so
+//     the scalar stores serve the row's last run and every row whose
+//     start does not align.
+//   * No count, no atomics, no memset: one launch, capturable in a graph.
 //
 // Host interface: plain C, bound with ctypes (no PyTorch headers).
 
@@ -33,32 +44,79 @@ namespace {
 
 using namespace kmerseek;
 
-__global__ void __launch_bounds__(kTile)
+// K > 0: k compiled in (the argument k equals K); K == 0: run-time k.
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads)
 window_hashes_kernel(const unsigned char* __restrict__ seqs,
                      const int32_t* __restrict__ lengths,
                      long long* __restrict__ hashes,
-                     bool* __restrict__ keep,
-                     int L, int W, int k, int tiles_per_row,
-                     uint64_t max_hash, uint64_t seed, ByteLut lut) {
-  __shared__ unsigned char s_lut[256];
-  __shared__ unsigned char s_seq[kTile + kMaxK];
+                     unsigned char* __restrict__ keep,
+                     const unsigned char* __restrict__ lut,
+                     int L, int W, int k_arg, int tiles_per_row,
+                     uint64_t max_hash, uint64_t seed, int vec_in, int vec_hash,
+                     int vec_keep) {
+  __shared__ __align__(16) unsigned char s_lut[256];
+  __shared__ __align__(16) unsigned char s_seq[kStageBytes];
 
+  const int k = K > 0 ? K : k_arg;
+  const int tile = blockDim.x * kRun;
   const int row = blockIdx.x / tiles_per_row;
-  const int w0 = (blockIdx.x - row * tiles_per_row) * kTile;
-  const unsigned char* src = seqs + (size_t)row * L;
+  const int w0 = (blockIdx.x - row * tiles_per_row) * tile;
 
-  s_lut[threadIdx.x] = lut.v[threadIdx.x];
-  __syncthreads();
-  stage_encoded_tile(src, L, w0, k, s_lut, s_seq);
-  __syncthreads();
+  stage_encoded(lut, seqs + (size_t)row * L, L, w0, tile, k, vec_in, s_lut, s_seq);
 
-  const int j = w0 + threadIdx.x;
-  if (j < W) {
-    const uint64_t h = murmur64(s_seq + threadIdx.x, k, seed);
-    const size_t o = (size_t)row * W + j;
-    hashes[o] = (long long)h;
-    keep[o] = j < lengths[row] - (k - 1) && h <= max_hash;
+  const int j0 = w0 + threadIdx.x * kRun;
+  if (j0 >= W) return;
+  uint64_t h[kRun];
+  hash_thread_run<K>(s_seq, k, seed, h);
+
+  const int n_windows = lengths[row] - (k - 1);
+  uint32_t flags = 0;  // byte i = keep of window j0 + i, 0 or 1
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    flags |= (uint32_t)(j0 + i < n_windows && h[i] <= max_hash) << (8 * i);
   }
+
+  const size_t o = (size_t)row * W + j0;
+  const bool whole = j0 + kRun <= W;
+  if (vec_hash && whole && (o & 1) == 0) {
+    ulonglong2* out = reinterpret_cast<ulonglong2*>(hashes + o);
+    out[0] = make_ulonglong2(h[0], h[1]);
+    out[1] = make_ulonglong2(h[2], h[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      if (j0 + i < W) hashes[o + i] = (long long)h[i];
+    }
+  }
+  if (vec_keep && whole && (o & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(keep + o) = flags;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      if (j0 + i < W) keep[o + i] = (unsigned char)(flags >> (8 * i));
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch(const void* seqs, const void* lengths, void* hashes, void* keep,
+                   const void* lut, int B, int L, int k, uint64_t max_hash, uint64_t seed,
+                   cudaStream_t st) {
+  const int W = L - k + 1;
+  const int nthreads = run_threads(W);
+  const int tile = nthreads * kRun;
+  const int tiles = (W + tile - 1) / tile;
+  const long long blocks = (long long)tiles * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int vec_in = ((uintptr_t)seqs % 16 == 0) && (L % 16 == 0);
+  const int vec_hash = (uintptr_t)hashes % 16 == 0;
+  const int vec_keep = (uintptr_t)keep % 4 == 0;
+  window_hashes_kernel<K><<<(unsigned)blocks, nthreads, 0, st>>>(
+      (const unsigned char*)seqs, (const int32_t*)lengths, (long long*)hashes,
+      (unsigned char*)keep, (const unsigned char*)lut, L, W, k, tiles, max_hash, seed,
+      vec_in, vec_hash, vec_keep);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -66,24 +124,23 @@ window_hashes_kernel(const unsigned char* __restrict__ seqs,
 extern "C" {
 
 // seqs (B, L) uint8, lengths (B,) int32, hashes (B, W) int64 and keep
-// (B, W) bool with W = L - k + 1; lut_host is a 256-byte host table.
-// Returns the cudaError_t of the launch.
+// (B, W) bool (one byte each) with W = L - k + 1; lut is a 256-byte table
+// in device memory, 4-byte aligned. Returns the cudaError_t of the launch.
 int window_hashes_launch(const void* seqs, const void* lengths, void* hashes,
                          void* keep, int B, int L, int k,
                          unsigned long long max_hash, unsigned long long seed,
-                         const unsigned char* lut_host, void* stream) {
+                         const void* lut, void* stream) {
   const int W = L - k + 1;
   if (B <= 0 || W <= 0) return (int)cudaSuccess;
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  ByteLut lut;
-  for (int i = 0; i < 256; ++i) lut.v[i] = lut_host[i];
-  const int tiles = (W + kTile - 1) / kTile;
-  const long long blocks = (long long)tiles * B;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  window_hashes_kernel<<<(unsigned)blocks, kTile, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)seqs, (const int32_t*)lengths, (long long*)hashes,
-      (bool*)keep, L, W, k, tiles, (uint64_t)max_hash, (uint64_t)seed, lut);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (k) {  // the compiled k; ops/sketch_cuda.py lists them as COMPILED_KS
+    case 5: return (int)launch<5>(seqs, lengths, hashes, keep, lut, B, L, k, max_hash, seed, st);
+    case 10: return (int)launch<10>(seqs, lengths, hashes, keep, lut, B, L, k, max_hash, seed, st);
+    case 16: return (int)launch<16>(seqs, lengths, hashes, keep, lut, B, L, k, max_hash, seed, st);
+    case 24: return (int)launch<24>(seqs, lengths, hashes, keep, lut, B, L, k, max_hash, seed, st);
+    default: return (int)launch<0>(seqs, lengths, hashes, keep, lut, B, L, k, max_hash, seed, st);
+  }
 }
 
 const char* kmerseek_cuda_error_string(int code) {

@@ -11,12 +11,24 @@
   the same order as the host build. Run statistics and the bucket
   table come from elementwise and cumulative ops on the device; the
   sorted postings stay there for the search (``device_postings``).
+* ``inverted_pair_stats`` / ``inverted_search`` — the dense engine:
+  ``(Q, T)`` intersect counts and abundance-weighted sums of a query
+  block against the postings. Every probe finds its run of equal hashes
+  by a lower and an upper bound (through the bucket table, or over the
+  whole array where the postings carry none, as a hash-range shard's
+  do), the runs expand to (query, target) tuples in bounded chunks, and
+  two ``index_add_`` calls sum them into the flattened matrices. Integer
+  adds, so the order cannot show. Plain PyTorch, as the JAX engine is
+  plain ``jnp``; it is the oracle that sharded search is held against.
+  The learned block hints of the JAX package (``dense_block_hint``,
+  ``note_dense_block``, ``autotune_dense_block``) are not part of this
+  port yet.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,7 +116,9 @@ class DevicePostings(NamedTuple):
     gk: torch.Tensor  # (N,) int64 sign-flipped sorted hashes (ascending)
     tid: torch.Tensor  # (N,) int64
     ab: torch.Tensor  # (N,) int64
-    bucket_starts: torch.Tensor  # (2^BUCKET_BITS + 1,) int64
+    # (2^BUCKET_BITS + 1,) int64; None for postings without a bucket
+    # table, which the dense engine then searches over their whole range
+    bucket_starts: Optional[torch.Tensor]
 
 
 # device copies keyed by the identity of the host ``g_hi`` array (each
@@ -141,6 +155,18 @@ def device_postings(inv: InvertedIndex, device) -> DevicePostings:
     )
     _cache_put(inv, device, dp)
     return dp
+
+
+def clear_device_postings(inv: Optional[InvertedIndex] = None) -> None:
+    """Release cached device copies of postings (device memory and the
+    host references that keep them): of ``inv`` alone, on every device,
+    or of every index when ``inv`` is None. For services that retire an
+    index."""
+    if inv is None:
+        _DEVICE_CACHE.clear()
+        return
+    for key in [k for k, ent in _DEVICE_CACHE.items() if ent[0] is inv.g_hi]:
+        del _DEVICE_CACHE[key]
 
 
 def build_inverted(mins, abundances, offsets, device) -> InvertedIndex:
@@ -190,3 +216,167 @@ def build_inverted(mins, abundances, offsets, device) -> InvertedIndex:
     )
     _cache_put(inv, device, DevicePostings(gk, tid, ab, starts))
     return inv
+
+
+# ---------------------------------------------------------------------------
+# the dense (Q, T) engine
+# ---------------------------------------------------------------------------
+
+# query rows of one dense dispatch: bounds the two (Q, T) matrices
+DEFAULT_DENSE_BLOCK = 4096
+# (query, target) tuples one expansion may hold (a single probe's run, at
+# most max_run postings, is never split)
+_DENSE_TUPLE_CHUNK = 1 << 24
+
+
+def bisect(gk, qk, lo, hi, steps: int, upper: bool):
+    """``steps`` rounds of vectorized binary search within [lo, hi):
+    the first index whose key is >= ``qk`` (``upper``: > ``qk``). Keys
+    are sign-flipped (``u64.sort_key``), so the order is unsigned. The
+    ``lo`` update is guarded by ``lo < hi``: a probe above the whole
+    span converges on ``hi`` and stays there, so ``upper - lower`` is an
+    exact run length."""
+    last = gk.shape[0] - 1
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        v = gk[torch.clamp(mid, max=last)]
+        go_right = (v <= qk) if upper else (v < qk)
+        lo = torch.where(go_right & (lo < hi), mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def probe_runs(
+    dp: DevicePostings, q_keys: torch.Tensor, *, max_run: int, span_steps: int, bucket_shift: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[lower, upper)`` posting range of every query hash's run of equal
+    hashes (empty where the hash is absent). Bucketed: one gather into
+    the top-bits table (the id clamped to its last bucket), then
+    ``span_steps`` bisect rounds inside the bucket; without a table,
+    ``span_steps`` rounds over the whole array (it must cover log2 N).
+    The upper bound is bisected within ``max_run`` of the lower."""
+    N = dp.gk.shape[0]
+    qk = sort_key(q_keys)
+    if dp.bucket_starts is None:
+        lo = torch.zeros_like(q_keys)
+        hi = torch.full_like(q_keys, N)
+    else:
+        b = torch.clamp(lsr(q_keys, bucket_shift), max=dp.bucket_starts.shape[0] - 2)
+        lo = dp.bucket_starts[b]
+        hi = dp.bucket_starts[b + 1]
+    pos = bisect(dp.gk, qk, lo, hi, span_steps, False)
+    ub = bisect(
+        dp.gk, qk, pos, torch.clamp(pos + max_run, max=N),
+        max(int(max_run).bit_length(), 1), True,
+    )
+    return pos, ub
+
+
+def _tuple_chunks(cnt: torch.Tensor, limit: int):
+    """Split probes ``0 .. P`` into consecutive ranges ``[a, b)`` whose run
+    lengths ``cnt`` sum to at most ``limit`` (a single longer run goes
+    alone). Yields ``(a, b, tuples in the range)``; ranges without tuples
+    are skipped."""
+    P = cnt.shape[0]
+    csum = torch.cumsum(cnt, 0)
+    total = int(csum[-1].item()) if P else 0
+    if total == 0:
+        return
+    if total <= limit:
+        yield 0, P, total
+        return
+    c = csum.cpu().numpy()
+    a, done = 0, 0
+    while a < P:
+        b = max(int(np.searchsorted(c, done + limit, side="right")), a + 1)
+        b = min(b, P)
+        m = int(c[b - 1]) - done
+        if m:
+            yield a, b, m
+        a, done = b, int(c[b - 1])
+
+
+def inverted_pair_stats(
+    dp: DevicePostings,
+    q_keys: torch.Tensor,
+    q_valid: torch.Tensor,
+    *,
+    n_targets: int,
+    max_run: int,
+    span_steps: int,
+    bucket_shift: int = 48,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``(Q, T)`` int32 intersect counts and int32 abundance-weighted
+    sums of one query block (counterpart of the JAX package's
+    ``inverted_pair_stats_packed``, equal element for element).
+
+    Args:
+      dp: the postings on the query block's device; ``bucket_starts``
+        None searches the whole array (``span_steps`` must then cover
+        log2 N), the mode of a hash-range shard's slice.
+      q_keys: ``(Q, S)`` int64 query hashes (u64 bits).
+      q_valid: ``(Q, S)`` bool, real and distinct slots; padding and
+        duplicate slots add nothing.
+      max_run: longest run of equal hashes in the postings.
+
+    Weights are summed in int64 and cast to int32 at the end: the JAX
+    engine's int32 sums while they fit, and the same two's-complement
+    bits where they wrap.
+    """
+    Q, S = q_keys.shape
+    T = int(n_targets)
+    dev = q_keys.device
+    counts = torch.zeros(Q * T, dtype=torch.int32, device=dev)
+    weights = torch.zeros(Q * T, dtype=torch.int64, device=dev)
+    if dp.gk.shape[0] == 0 or Q * S == 0:
+        return counts.view(Q, T), weights.to(torch.int32).view(Q, T)
+    pos, ub = probe_runs(
+        dp, q_keys, max_run=max_run, span_steps=span_steps, bucket_shift=bucket_shift
+    )
+    cnt = torch.where(q_valid.to(torch.bool), ub - pos, torch.zeros_like(pos)).reshape(-1)
+    pos = pos.reshape(-1)
+    for a, b, m in _tuple_chunks(cnt, _DENSE_TUPLE_CHUNK):
+        c = cnt[a:b]
+        probe = torch.repeat_interleave(torch.arange(b - a, device=dev), c, output_size=m)
+        rank = torch.arange(m, device=dev) - (torch.cumsum(c, 0) - c)[probe]
+        idx = pos[a:b][probe] + rank
+        flat = ((probe + a) // S) * T + dp.tid[idx]
+        counts.index_add_(0, flat, torch.ones(m, dtype=torch.int32, device=dev))
+        weights.index_add_(0, flat, dp.ab[idx])
+    return counts.view(Q, T), weights.to(torch.int32).view(Q, T)
+
+
+def inverted_search(
+    index, q_keys: torch.Tensor, q_valid: torch.Tensor, *, q_block: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ProteomeIndex + query block → dense ``(Q, T)`` int32 counts and
+    weighted sums, on the device of ``q_keys`` (counterpart of the JAX
+    package's ``inverted_search``).
+
+    Reuses the index's cached or persisted postings; anything else with
+    the CSR arrays ``mins``/``abundances``/``offsets`` gets a host build.
+    Query blocks of more than ``q_block`` rows (default
+    ``DEFAULT_DENSE_BLOCK``) run in block-sized pieces; the result is
+    their row concatenation. An index without postings gives zeros."""
+    inv = getattr(index, "inverted", None)
+    if not isinstance(inv, InvertedIndex):
+        inv = build_inverted_np(index.mins, index.abundances, index.offsets)
+    Q = q_keys.shape[0]
+    if inv.n_postings == 0:  # all-empty target sketches: nothing can match
+        z = torch.zeros((Q, inv.n_targets), dtype=torch.int32, device=q_keys.device)
+        return z, z.clone()
+    dp = device_postings(inv, q_keys.device)
+    block = int(q_block) if q_block else DEFAULT_DENSE_BLOCK
+
+    def run(lo: int, hi: int):
+        return inverted_pair_stats(
+            dp, q_keys[lo:hi], q_valid[lo:hi],
+            n_targets=inv.n_targets, max_run=inv.max_run,
+            span_steps=max(int(inv.max_span).bit_length(), 1),
+            bucket_shift=inv.bucket_shift,
+        )
+
+    if Q <= block:
+        return run(0, Q)
+    parts = [run(lo, lo + block) for lo in range(0, Q, block)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

@@ -15,11 +15,11 @@ launchers. For a padded ``(B, L)`` residue batch and every window
 Each wrapper launches its hand-written kernel (built at first use) on a
 CUDA tensor and takes its plain PyTorch version (``*_ref``, built from
 ``ops.murmur3.murmur64_kmer_windows``) on a CPU tensor. Launches are
-counted in ``<wrapper>.launches``. The masked kernel has k compiled in
-for ``COMPILED_KS`` and a run-time-k version for every other k up to
-128; it reads its 256-byte LUT from a device table cached per moltype
-and device (``encoding_lut``) and zeroes its own counts, so a call
-costs the host two ``torch.empty`` and one ctypes call.
+counted in ``<wrapper>.launches``. Both kernels have k compiled in for
+``COMPILED_KS`` and a run-time-k version for every other k up to 128;
+both read the 256-byte LUT from a device table cached per moltype and
+device (``encoding_lut``), and the masked kernel zeroes its own counts,
+so a call costs the host two ``torch.empty`` and one ctypes call.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 
 from . import cuda_build
@@ -37,7 +36,7 @@ from .u64 import le_u64
 
 SOURCE = "masked_sketch.cu"
 WINDOW_SOURCE = "window_hashes.cu"
-# the k that masked_sketch.cu's launch function has a compiled version of
+# the k that both launch functions have a compiled version of
 COMPILED_KS = (5, 10, 16, 24)
 
 _lut_cache: Dict[Tuple[str, torch.device], torch.Tensor] = {}
@@ -101,19 +100,14 @@ def masked_window_keys_ref(
 def _launch(source, symbol, what, seqs, lengths, out0, out1, k, scaled, moltype, seed):
     """Check a CUDA input pair and launch one hash kernel into out0/out1.
     Both take (seqs, lengths, out0, out1, B, L, k, max_hash, seed, lut,
-    stream); the masked kernel reads ``lut`` on the device, the
-    window-hash kernel takes a host table."""
+    stream) and read ``lut`` from the cached device table."""
     _check_inputs(seqs, lengths, k)
     if not (seqs.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("seqs and lengths must be contiguous")
     B, L = seqs.shape
     if B == 0:
         return
-    if source == SOURCE:
-        lut_ptr = encoding_lut(moltype, seqs.device).data_ptr()
-    else:
-        lut = np.ascontiguousarray(get_encoding_lut(moltype))
-        lut_ptr = lut.ctypes.data
+    lut = encoding_lut(moltype, seqs.device)
     lib = cuda_build.load(source)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
@@ -129,7 +123,7 @@ def _launch(source, symbol, what, seqs, lengths, out0, out1, k, scaled, moltype,
         code = fn(
             seqs.data_ptr(), lengths.data_ptr(), out0.data_ptr(), out1.data_ptr(),
             B, L, k, max_hash_for_scaled(scaled), seed & ((1 << 64) - 1),
-            lut_ptr, stream,
+            lut.data_ptr(), stream,
         )
     cuda_build.check(lib, code, what)
 

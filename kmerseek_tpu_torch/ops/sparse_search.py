@@ -26,8 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .inverted import InvertedIndex, build_inverted_np, device_postings
-from .u64 import lsr, sort_key
+from .inverted import InvertedIndex, build_inverted_np, device_postings, probe_runs
 
 # default run-offset tile: corpora whose worst hash occurs in more
 # targets than this are probed in windows of this many postings
@@ -49,35 +48,14 @@ def _empty_hits() -> SparseHits:
     return SparseHits(z, z, z, z.astype(np.int64), 0)
 
 
-def _bisect(gk, qk, lo, hi, steps: int, upper: bool):
-    """``steps`` rounds of vectorized binary search within [lo, hi):
-    the first index whose key is >= ``qk`` (``upper``: > ``qk``)."""
-    last = gk.shape[0] - 1
-    for _ in range(steps):
-        mid = (lo + hi) >> 1
-        v = gk[torch.clamp(mid, max=last)]
-        go_right = (v <= qk) if upper else (v < qk)
-        lo = torch.where(go_right & (lo < hi), mid + 1, lo)
-        hi = torch.where(go_right, hi, mid)
-    return lo
-
-
 def _block_hits(
     inv: InvertedIndex, dp, q_keys, q_valid, *, run_offset: int, tile: int
 ) -> SparseHits:
     """All hit pairs of one query block within one run-offset window."""
     Q, S = q_keys.shape
-    N = dp.gk.shape[0]
-    qk = sort_key(q_keys)
-    nb = dp.bucket_starts.shape[0]
-    b = torch.clamp(lsr(q_keys, inv.bucket_shift), max=nb - 2)
-    lo = dp.bucket_starts[b]
-    hi = dp.bucket_starts[b + 1]
-    pos = _bisect(dp.gk, qk, lo, hi, max(int(inv.max_span).bit_length(), 1), False)
-    # a run of equal hashes never exceeds the index-wide max_run
-    ub = _bisect(
-        dp.gk, qk, pos, torch.clamp(pos + inv.max_run, max=N),
-        max(int(inv.max_run).bit_length(), 1), True,
+    pos, ub = probe_runs(
+        dp, q_keys, max_run=inv.max_run,
+        span_steps=max(int(inv.max_span).bit_length(), 1), bucket_shift=inv.bucket_shift,
     )
     cnt = torch.where(q_valid, ub - pos, torch.zeros_like(pos))
     cnt = torch.clamp(cnt - run_offset, 0, tile).reshape(-1)

@@ -10,7 +10,9 @@ function) and ``torch.profiler`` (device time by kernel):
 * ``kmerseek index`` and ``kmerseek search`` (the main path);
 * ``kmerseek index --extract-kmers --force`` at the defaults, then
   ``index --extract-kmers`` and ``search --extract-kmers
-  --stitch-per-query`` in chip_smoke's stitching alphabet (path A).
+  --stitch-per-query`` in chip_smoke's stitching alphabet (path A);
+* ``do_multisearch`` on the two ``.sig.zip`` files and one
+  ``_device_pair_stats`` block of the dense inverted engine (path C).
 
 Prints the wall time of each command, the device's busy share (summed
 device kernel time over wall time), the top device kernels and the top
@@ -59,13 +61,16 @@ def _device_us(prof) -> tuple:
     return sum(r[1] for r in rows), rows
 
 
-def run(label: str, args: list, out_dir: str) -> None:
+def run(label: str, args, out_dir: str) -> None:
+    """Profile one command: ``args`` is the kmerseek command line, or a
+    function to call."""
+    call = args if callable(args) else (lambda: chip_smoke.kmerseek_quiet_stderr(*args))
     torch.cuda.synchronize()
     pr = cProfile.Profile()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pr.enable()
-        chip_smoke.kmerseek_quiet_stderr(*args)
+        call()
         torch.cuda.synchronize()
         pr.disable()
         wall = time.perf_counter() - t0
@@ -124,6 +129,19 @@ def main() -> int:
              "--output", os.path.join(d, "stitched.csv")],
             args.out,
         )
+        from kmerseek_tpu_torch.core import search as search_mod
+        from kmerseek_tpu_torch.core.index import ProteomeIndex
+
+        qsig, tsig = (f"{fa}.hp.k24.scaled5.sig.zip" for fa in (qfa, tfa))
+        run(
+            "multisearch",
+            lambda: search_mod.do_multisearch(qsig, tsig, os.path.join(d, "multi.csv")),
+            args.out,
+        )
+        query = search_mod._as_index(qsig)
+        target = ProteomeIndex.load(f"{tsig}.ksx")
+        search_mod._device_pair_stats(query, target)  # postings uploaded, allocator warm
+        run("dense_pair_stats", lambda: search_mod._device_pair_stats(query, target), args.out)
     return 0
 
 

@@ -8,7 +8,8 @@
 * each CUDA wrapper given a CPU tensor takes the plain version and
   counts no launch;
 * a kernel library's name changes with every header its source
-  includes, so an edited shared header rebuilds it;
+  includes, so an edited shared header rebuilds it; the shared header
+  holds the only copy of the hash and of the encoded staging;
 * the build module reads registers, shared memory and spills out of
   what ``nvcc -Xptxas -v`` prints.
 """
@@ -68,6 +69,13 @@ def test_entry_points_default_to_cuda(tmp_path):
         entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProteomeIndex.from_arrays(IndexConfig(), ["a"], [1], [1], [0, 1])
+    from kmerseek_tpu_torch.core.search import do_manysearch, do_multisearch
+
+    sig = ProteomeIndex.build(str(fasta), device="cpu").to_sig_zip(str(tmp_path / "t.sig.zip"))
+    for search in (do_manysearch, do_multisearch):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            search(sig, sig, str(tmp_path / "out.csv"))
+        assert not os.path.exists(tmp_path / "out.csv")
     for args in (["index", str(fasta)], ["index", "--extract-kmers", str(fasta)]):
         res = CliRunner().invoke(cli, args)
         assert res.exit_code == 2 and "no CUDA device" in res.output
@@ -130,6 +138,32 @@ def test_library_name_follows_included_headers(tmp_path):
     assert after["masked_sketch.cu"] != before["masked_sketch.cu"]
     assert after["window_hashes.cu"] != before["window_hashes.cu"]
     assert after["bitonic_sort.cu"] == before["bitonic_sort.cu"]
+
+
+@pytest.mark.parametrize("source", ["masked_sketch.cu", "window_hashes.cu"])
+def test_shared_header_holds_the_only_copy(source):
+    """The hash, the LUT encoding and the encoded staging are defined in
+    ``murmur64.cuh`` alone; each kernel source calls them and defines no
+    copy of its own, and the first design's staging is gone."""
+    import re
+
+    from kmerseek_tpu_torch.ops import cuda_build
+
+    def read(name):
+        with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+            return f.read()
+
+    header, text = read("murmur64.cuh"), read(source)
+    shared = ("stage_encoded", "encode4", "hash_thread_run", "murmur64_run", "murmur64", "fmix64", "run_threads")
+    for fn in shared:
+        definition = re.compile(rf"^[\w \t:<>&*]*\b{fn}\s*\([^;{{]*\)\s*\{{", re.M)
+        assert len(definition.findall(header)) == 1, fn
+        assert not definition.search(text), fn
+    for call in ("stage_encoded(lut,", "hash_thread_run<K>(s_seq, k, seed, h)", "run_threads(W)"):
+        assert call in text, call
+    assert '#include "murmur64.cuh"' in text
+    for gone in ("stage_encoded_tile", "kTile", "ByteLut", "lut_host"):
+        assert gone not in header and gone not in text, gone
 
 
 def test_ptxas_report_is_parsed():

@@ -13,7 +13,12 @@ index arithmetic they are built on:
   thread's run of bytes held as 32-bit words, each window's 64-bit words
   cut out by funnel shifts — gives ``int.from_bytes(..., "little")`` for
   every word of every window, and through the scalar mixing steps the
-  hash of ``ops.murmur3.murmur64_bytes_py``.
+  hash of ``ops.murmur3.murmur64_bytes_py``;
+* the window-hash kernel's stores (``csrc/window_hashes.cu``): a thread's
+  four keep flags packed into one 32-bit word are the bytes four ``bool``
+  stores would write, and the choice between vector and scalar stores by
+  the alignment of ``row * W + j0`` writes every element of the
+  ``(B, W)`` outputs exactly once, vector stores only where aligned.
 """
 
 import os
@@ -464,16 +469,126 @@ def test_rolling_words_equal_bytes_and_the_scalar_murmur(k):
             assert rolling_murmur(w32, i, k) == murmur3.murmur64_bytes_py(window), (k, i)
 
 
-def test_hash_constants_equal_the_cuda_source():
-    assert _constexprs(_read("murmur64.cuh"), "kRun", "kMaxK") == {"kRun": 4, "kMaxK": 128}
-    masked = _read("masked_sketch.cu")
+@pytest.mark.parametrize("source", ["masked_sketch.cu", "window_hashes.cu"])
+def test_hash_constants_equal_the_cuda_source(source):
+    assert _constexprs(_read("murmur64.cuh"), "kRun", "kMaxK", "kMaxThreads") == {
+        "kRun": 4, "kMaxK": 128, "kMaxThreads": 256,
+    }
+    text = _read(source)
     # k compiled in for the CLI default and the smoke run's widths, plus
-    # the run-time version (K = 0)
+    # the run-time version (K = 0), in both kernels' launch functions
     for k in (5, 10, 16, 24):
-        assert re.search(rf"case {k}:", masked), k
-    assert "default:" in masked
+        assert re.search(rf"case {k}:", text), k
+    assert "default:" in text
     from kmerseek_tpu_torch.ops import sketch_cuda
 
     assert sketch_cuda.COMPILED_KS == tuple(
-        int(x) for x in re.findall(r"case (\d+):", masked)
+        int(x) for x in re.findall(r"case (\d+):", text)
     )
+
+
+# ---------------------------------------------------------------------------
+# the window-hash kernel's stores
+# ---------------------------------------------------------------------------
+
+RUN = 4  # kRun
+
+
+def run_threads(W: int) -> int:
+    """The .cuh's ``run_threads``: threads of a block by the row's windows."""
+    return 64 if W <= 64 * RUN else (128 if W <= 128 * RUN else 256)
+
+
+def pack_keep(flags) -> int:
+    """The kernel's ``flags`` word: byte i = keep of window j0 + i."""
+    word = 0
+    for i, f in enumerate(flags):
+        word |= int(bool(f)) << (8 * i)
+    return word
+
+
+@pytest.mark.parametrize("bits", range(16))
+def test_keep_word_equals_four_bool_stores(bits):
+    flags = [bool(bits >> i & 1) for i in range(RUN)]
+    as_bools = np.array(flags, np.bool_)  # what four one-byte stores leave
+    assert np.array([pack_keep(flags)], "<u4").tobytes() == as_bools.tobytes()
+    assert torch.frombuffer(bytearray(as_bools.tobytes()), dtype=torch.bool).tolist() == flags
+
+
+def store_model(B: int, W: int, hash_base: int = 0, keep_base: int = 0):
+    """The store stage of ``window_hashes_kernel`` over a (B, W) output:
+    every thread's run, its path by the kernel's tests (``whole``, ``o & 1``,
+    ``o & 3``, and the launch function's pointer tests), written into flat
+    buffers. Returns (hash writes per element, keep writes per element,
+    {path: runs}) and asserts that a vector store is aligned."""
+    threads = run_threads(W)
+    tile = threads * RUN
+    tiles = (W + tile - 1) // tile
+    vec_hash = hash_base % 16 == 0
+    vec_keep = keep_base % 4 == 0
+    n_hash = np.zeros(B * W, np.int64)
+    n_keep = np.zeros(B * W, np.int64)
+    paths = {"hash16": 0, "hash8": 0, "keep4": 0, "keep1": 0}
+    for row in range(B):
+        for t in range(tiles):
+            for tid in range(threads):
+                j0 = t * tile + tid * RUN
+                if j0 >= W:
+                    continue
+                o = row * W + j0
+                whole = j0 + RUN <= W
+                if vec_hash and whole and (o & 1) == 0:
+                    assert (hash_base + 8 * o) % 16 == 0
+                    n_hash[o : o + RUN] += 1
+                    paths["hash16"] += 1
+                else:
+                    n_hash[o : o + min(RUN, W - j0)] += 1
+                    paths["hash8"] += 1
+                if vec_keep and whole and (o & 3) == 0:
+                    assert (keep_base + o) % 4 == 0
+                    n_keep[o : o + RUN] += 1
+                    paths["keep4"] += 1
+                else:
+                    n_keep[o : o + min(RUN, W - j0)] += 1
+                    paths["keep1"] += 1
+    return n_hash, n_keep, paths
+
+
+@pytest.mark.parametrize(
+    "B,W,bases,expect",
+    [
+        (8, 1001, (0, 0), "odd"),  # L = 1024, k = 24: the timed shape
+        (8, 1000, (0, 0), "all_vector"),
+        (6, 498, (0, 0), "even"),  # W = 2 mod 4: 128-thread tiles
+        (5, 253, (0, 0), "odd"),  # one 64-thread tile a row
+        (3, 3, (0, 0), "all_scalar"),  # shorter than a run
+        (4, 1000, (8, 2), "all_scalar"),  # unaligned output pointers
+    ],
+)
+def test_window_hash_store_paths_cover_every_element_once(B, W, bases, expect):
+    n_hash, n_keep, paths = store_model(B, W, *bases)
+    assert (n_hash == 1).all() and (n_keep == 1).all()
+    runs = B * ((W + RUN - 1) // RUN)
+    assert paths["hash16"] + paths["hash8"] == paths["keep4"] + paths["keep1"] == runs
+    whole = B * (W // RUN)
+    if expect == "all_vector":
+        assert paths["hash16"] == paths["keep4"] == runs
+    elif expect == "all_scalar":
+        assert paths["hash16"] == paths["keep4"] == 0
+    elif expect == "odd":  # rows 0, 4: keep words; rows 0, 2, 4, 6: 16-byte hashes
+        assert paths["keep4"] == -(-B // 4) * (W // RUN)
+        assert paths["hash16"] == -(-B // 2) * (W // RUN)
+        assert 0 < paths["keep4"] < paths["hash16"] < whole
+    else:  # W = 2 mod 4: every row's start is even, every other a multiple of 4
+        assert paths["hash16"] == whole and paths["keep4"] == -(-B // 2) * (W // RUN)
+
+
+def test_window_hash_store_tests_are_in_the_source():
+    text = _read("window_hashes.cu")
+    header = _read("murmur64.cuh")
+    assert "vec_hash && whole && (o & 1) == 0" in text
+    assert "vec_keep && whole && (o & 3) == 0" in text
+    assert "(uintptr_t)hashes % 16 == 0" in text and "(uintptr_t)keep % 4 == 0" in text
+    assert "<< (8 * i)" in text  # byte i of the flags word = window j0 + i
+    assert "W <= 64 * kRun ? 64 : (W <= 128 * kRun ? 128 : kMaxThreads)" in header
+    assert "atomic" not in text.split("#include", 1)[1] and "cudaMemset" not in text

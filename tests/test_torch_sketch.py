@@ -1,7 +1,7 @@
-"""The port's sketch stage against the JAX package: the plain version of
-the CUDA kernel against the Pallas kernel (interpret mode), and the
-sorted sketch stage + host finalize against ``sorted_window_hashes``.
-Everything is integer: bit-equal (tolerance 0)."""
+"""The port's sketch stage against the JAX package: the plain versions of
+the two CUDA hash kernels against the Pallas kernels (interpret mode),
+and the sorted sketch stage + host finalize against
+``sorted_window_hashes``. Everything is integer: bit-equal (tolerance 0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,12 +9,17 @@ import pytest
 import torch
 
 from kmerseek_tpu.ops import sketch as jax_sketch
-from kmerseek_tpu.ops.sketch_pallas import masked_window_keys_pallas
+from kmerseek_tpu.ops.sketch_pallas import masked_window_keys_pallas, window_hashes_pallas
 from kmerseek_tpu.ops.u64 import join_np
 from kmerseek_tpu_torch.ops import sketch
 from kmerseek_tpu_torch.ops.murmur3 import murmur64_bytes_py
 from kmerseek_tpu_torch.ops.encoding import encode_bytes_np
-from kmerseek_tpu_torch.ops.sketch_cuda import masked_window_keys, masked_window_keys_ref
+from kmerseek_tpu_torch.ops.sketch_cuda import (
+    masked_window_keys,
+    masked_window_keys_ref,
+    window_hashes,
+    window_hashes_ref,
+)
 
 AA = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
@@ -54,6 +59,34 @@ def test_kernel_ref_matches_pallas(moltype, k, scaled):
     for b, j in zip(*np.nonzero(h != np.uint64(2**64 - 1))[:2]):
         if j % 37 == 0:
             assert int(h[b, j]) == murmur64_bytes_py(bytes(enc[b, j : j + k]))
+
+
+@pytest.mark.parametrize("moltype", ["dayhoff", "hp"])
+@pytest.mark.parametrize(
+    "k,scaled,L",
+    # the kernel's compiled k and two it runs with k at run time; window
+    # counts W = L - k + 1 odd, even and 2 mod 4; one, two and four tiles' worth
+    [(5, 1, 256), (10, 1, 256), (16, 5, 384), (24, 5, 384), (12, 1, 256), (40, 5, 384), (24, 5, 640), (10, 5, 1152)],
+)
+def test_window_hashes_cpu_route_matches_pallas(moltype, k, scaled, L):
+    seqs, lens = _batch(50 + k + L, 6, L, k)
+    h, keep = window_hashes(
+        torch.from_numpy(seqs), torch.from_numpy(lens), k=k, scaled=scaled, moltype=moltype
+    )
+    ph, pk = window_hashes_pallas(
+        jnp.asarray(seqs), jnp.asarray(lens), k=k, scaled=scaled, moltype=moltype,
+        interpret=True,
+    )
+    W = L - k + 1
+    assert h.shape == keep.shape == (6, W) and h.dtype == torch.int64 and keep.dtype == torch.bool
+    # every window's hash, also past a row's length (rows 0..2 are shorter than L)
+    assert np.array_equal(_u64(h), join_np(np.asarray(ph.hi)[:, :W], np.asarray(ph.lo)[:, :W]))
+    assert np.array_equal(keep.numpy(), np.asarray(pk)[:, :W])
+    assert not keep[0].any() and not keep[1].any() and keep[3].any()
+    rh, rkeep = window_hashes_ref(
+        torch.from_numpy(seqs), torch.from_numpy(lens), k=k, scaled=scaled, moltype=moltype
+    )
+    assert torch.equal(h, rh) and torch.equal(keep, rkeep)
 
 
 @pytest.mark.parametrize(
