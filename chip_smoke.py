@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, kernel checks,
-and the port's four paths at the scale of a human reference proteome.
+and the port's five paths at the scale of a human reference proteome.
 
     python3 chip_smoke.py [--seed N] [--kernels-only]
 
 (``--kernels-only`` stops after phase 3 and prints no result line: the
-quick check of a kernel edit.)
+quick check of a kernel edit. ``--path-d-worker RANK`` is how the script
+starts itself as one rank of path D's process group.)
 
 Phases (each prints its lines; any failure exits non-zero):
 
@@ -69,10 +70,34 @@ Phases (each prints its lines; any failure exits non-zero):
    equals the host join's counts and weighted sums scattered into
    matrices, in full; its first 2,048 columns equal path B's
    ``pairwise_stats`` counts;
-8. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+8. path D, ``parallel/``, at full size. D1: the script starts itself
+   twice as the two ranks of a Gloo process group on localhost, both on
+   ``cuda:0``; each rank runs ``ProteomeIndex.build_distributed``,
+   ``build_sharded_index``, ``save``, ``ShardedProteomeIndex.load`` and
+   the sharded manysearch and multisearch of the 1,024 queries against
+   its reloaded shard. Checks: both ranks' merged index arrays equal
+   the main path's index; each shard's postings lie inside its hash
+   range, the two counts add up to the index's postings and each is
+   45-55% of them; both ranks' manysearch CSV bytes equal the main
+   path's search CSV and their multisearch CSV bytes path C's; each
+   rank launched the masked kernel and ran the sparse cross-check on
+   its shard. A rank that fails or overruns its time limit fails the
+   run, and the survivors are killed. D2: a mesh of four shards in this
+   process (``make_mesh(4)``: on one card all on ``cuda:0``):
+   ``sharded_inverted_search`` of the 1,024 x 20,000 block equals path
+   C's matrices in full, ``sharded_sparse_search`` densified equals
+   them too, ``distributed_manysearch_stats`` and
+   ``make_dist_pipeline_step`` (1,024 query rows split four ways
+   against the first 2,048 targets) equal path B's ``pairwise_stats``,
+   the step's ``total_retained`` is the sum of the query sketch sizes,
+   and ``dryrun_multichip(4)`` passes. All three kernels launched. Four
+   logical shards on one card show the layout, not a scaling;
+9. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last. A kernel's
-   ``launches`` counts its wrapper's calls; one sort call is one grid up
-   to 131,072 keys a row (``ops.sort_cuda.sort_grid_launches``).
+   ``launches`` counts its wrapper's calls in the run of the path that
+   introduced it (``launches_by_path`` has every path's count, path D's
+   too); one sort call is one grid up to 131,072 keys a row
+   (``ops.sort_cuda.sort_grid_launches``).
 """
 
 from __future__ import annotations
@@ -593,6 +618,9 @@ class Corpus:
         write_fasta(self.qfa, self.qnames, self.queries)
         self.search_csv = os.path.join(workdir, "search.csv")
         self.pair_counts = None  # path B: pairwise_stats' (Q, first targets) intersect counts
+        self.pair_weighted = None  # path B: and its weighted sums
+        self.dense_counts = self.dense_weights = None  # path C: the dense engine's (Q, T) matrices
+        self.multisearch_csv = None  # path C: do_multisearch's CSV on the card
         lens = self.lens
         log(
             f"corpus: {len(self.targets)} targets, {int(lens.sum())} residues "
@@ -619,7 +647,7 @@ def launches() -> dict:
     return {fn.__name__: fn.launches for fn in (masked_window_keys, window_hashes, bitonic_sort_rows)}
 
 
-def main_path_phase(c: Corpus) -> int:
+def main_path_phase(c: Corpus) -> dict:
     tfa, qfa, lens, planted = c.tfa, c.qfa, c.lens, c.planted
 
     timer = KernelTimer(sm_clock_hz())
@@ -691,7 +719,7 @@ def main_path_phase(c: Corpus) -> int:
         f"first 500 targets: .sig.zip ({len(results['cpu'][0])} B) and search CSV "
         f"({n_rows} rows) identical on the card and the CPU"
     )
-    return launched
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -715,7 +743,7 @@ def _timed(*args) -> float:
     return time.perf_counter() - t0
 
 
-def path_a_phase(c: Corpus) -> int:
+def path_a_phase(c: Corpus) -> dict:
     import pyarrow.parquet as pq
 
     m = ("--moltype", PATH_A_MOLTYPE)
@@ -815,7 +843,7 @@ def path_a_phase(c: Corpus) -> int:
     log(f"first 3000 targets, hp/k24/scaled5 stitched search stops on: {stops}")
     if not (stops["cuda"] and "stitched length mismatch" in stops["cuda"] and stops["cuda"] == stops["cpu"]):
         raise SystemExit(f"hp stitched search on the first 3000 targets: card and CPU differ: {stops}")
-    return counts["window_hashes"]
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -896,7 +924,8 @@ def path_b_phase(c: Corpus, n_pair_targets: int = 2048) -> dict:
     if not np.array_equal(got, want):
         n = int((got != want).sum())
         raise SystemExit(f"pairwise_stats disagrees with the search CSV on {n} pairs")
-    c.pair_counts = got  # path C holds the dense engine against it
+    c.pair_counts = got  # paths C and D hold their engines against it
+    c.pair_weighted = stats.weighted.cpu().numpy()
 
     fc, ac = entry(device="cuda")
     fp, ap = entry(device="cpu")
@@ -925,7 +954,7 @@ def _read_bytes(path: str) -> bytes:
         return f.read()
 
 
-def path_c_phase(c: Corpus, smi: str) -> None:
+def path_c_phase(c: Corpus, smi: str) -> dict:
     from kmerseek_tpu_torch.core import search as search_mod
     from kmerseek_tpu_torch.ops.inverted import inverted_search
 
@@ -942,6 +971,8 @@ def path_c_phase(c: Corpus, smi: str) -> None:
         torch.cuda.synchronize()
         walls[device] = time.perf_counter() - t0
         outs[device] = _read_bytes(out)
+        if device == "cuda":
+            c.multisearch_csv = out  # path D's sharded multisearch must write these bytes
     if outs["cuda"] != outs["cpu"]:
         raise SystemExit("multisearch CSV bytes differ between the card and the CPU")
     header, _, body = outs["cuda"].partition(b"\n")
@@ -983,6 +1014,7 @@ def path_c_phase(c: Corpus, smi: str) -> None:
         raise SystemExit(f"dense engine counts differ from the host join on {int((counts != want_c).sum())} pairs")
     if not np.array_equal(weights, want_w.astype(np.int32)):
         raise SystemExit("dense engine weighted sums differ from the host join")
+    c.dense_counts, c.dense_weights = counts, weights  # path D's sharded engines must give these
     n_sub = c.pair_counts.shape[1]
     row_of = {name: i for i, name in enumerate(query.names)}
     rows = [row_of[name] for name in c.qnames]  # path B's rows are in FASTA order
@@ -1017,13 +1049,299 @@ def path_c_phase(c: Corpus, smi: str) -> None:
         f"{int(want_c.sum())} shared hashes) and pairwise_stats on the first {n_sub} targets; "
         f"launches {counts_c} (no kernel of the port is on this path)"
     )
+    return counts_c
+
+
+# ---------------------------------------------------------------------------
+# path D: parallel/ — a 2-process group on one card, and a 4-shard mesh
+# ---------------------------------------------------------------------------
+
+D1_WORLD = 2
+D1_GROUP_TIMEOUT_S = 180  # rendezvous and every collective, in each rank
+D1_WAIT_TIMEOUT_S = 420  # this process's wait for the whole group
+
+
+def _d1_paths(workdir: str, rank: int) -> dict:
+    base = os.path.join(workdir, f"d1-rank{rank}")
+    return {
+        "index": f"{base}.index.npz", "many": f"{base}.many.csv", "multi": f"{base}.multi.csv",
+        "result": f"{base}.json", "stdout": f"{base}.out", "stderr": f"{base}.err",
+    }
+
+
+def path_d_worker(rank: int, init_method: str, workdir: str) -> int:
+    """One rank of path D1's group (``chip_smoke.py --path-d-worker RANK``),
+    on ``cuda:0`` like the other rank. Writes its results into
+    ``workdir`` for the process that started it."""
+    from kmerseek_tpu_torch.core import search as search_mod
+    from kmerseek_tpu_torch.parallel import multihost, sharded
+
+    if not torch.cuda.is_available():
+        log("no CUDA device: chip_smoke needs a GPU")
+        return 2
+    dev = "cuda:0"
+    paths = _d1_paths(workdir, rank)
+    tfa, qfa = os.path.join(workdir, "target.fa"), os.path.join(workdir, "query.fa")
+    walls = {}
+
+    stats = multihost.exchange_stats  # bytes and seconds of every all-gather so far
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    reset_launches()
+    _validate_with_device.runs = 0
+    got = timed("rendezvous", multihost.initialize_distributed, init_method, D1_WORLD, rank)
+    if got != (rank, D1_WORLD):
+        raise SystemExit(f"rank {rank}: the group reports {got}")
+    idx = timed("build_distributed", ProteomeIndex.build_distributed, tfa, device=dev)
+    replica = dict(stats)  # the full-replica build's share of the exchange
+    np.savez(
+        paths["index"], names=np.asarray(idx.names, dtype=np.str_), mins=idx.mins,
+        abundances=idx.abundances, offsets=idx.offsets,
+    )
+    del idx
+    built = timed("build_sharded", sharded.build_sharded_index, tfa, device=dev)
+    save_dir = os.path.join(workdir, "d1-sharded.ksx")
+    timed("save", built.save, save_dir)
+    sh = timed("load", sharded.ShardedProteomeIndex.load, save_dir, device=dev)  # shard from the group
+    same = (
+        (sh.shard, sh.n_shards) == (rank, D1_WORLD) and sh.names == built.names and sh.md5s == built.md5s
+        and all(np.array_equal(getattr(sh.local, m), getattr(built.local, m)) for m in ("g_hi", "g_lo", "tid", "ab"))
+    )
+    if not same:
+        raise SystemExit(f"rank {rank}: the reloaded shard differs from the built one")
+    del built
+    query = search_mod._as_index(f"{qfa}.hp.k24.scaled5.sig.zip", device=dev)
+    many = timed("manysearch", sharded.sharded_manysearch_columns, query, sh)
+    multi = timed("multisearch", sharded.sharded_multisearch_columns, query, sh)
+    search_mod.write_search_csv_columns(many, paths["many"])
+    search_mod.write_search_csv_columns(multi, paths["multi"])
+    g = sh.local.g64()
+    result = {
+        "rank": rank, "walls": walls, "exchange_replica": replica, "exchange": dict(stats),
+        "n_local_postings": int(sh.n_local_postings), "hash_range": list(sh.hash_range),
+        "g_min": int(g.min()), "g_max": int(g.max()), "n_targets": len(sh),
+        "launches": launches(), "validations": _validate_with_device.runs,
+        "device": str(sh.device),
+    }
+    with open(paths["result"], "w") as f:
+        json.dump(result, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    try:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+    finally:
+        s.close()
+
+
+def path_d1_phase(c: Corpus, smi: str) -> dict:
+    """Two ranks on one card. Returns rank 0's launch counts."""
+    init_method = f"tcp://localhost:{_free_port()}"
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", KMERSEEK_DIST_TIMEOUT=str(D1_GROUP_TIMEOUT_S))
+    paths = [_d1_paths(c.workdir, r) for r in range(D1_WORLD)]
+    t0 = time.perf_counter()
+    procs, files = [], []
+    try:
+        for r in range(D1_WORLD):
+            out, err = open(paths[r]["stdout"], "w"), open(paths[r]["stderr"], "w")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--path-d-worker", str(r),
+                 "--init-method", init_method, "--workdir", c.workdir],
+                stdout=out, stderr=err, env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+            ))
+        deadline = time.monotonic() + D1_WAIT_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"path D1: rank {r} overran {D1_WAIT_TIMEOUT_S} s; the group is killed")
+    finally:
+        for p in procs:  # a failed or hung group leaves no process behind
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(paths[r]["stderr"]) as f:
+                raise SystemExit(f"path D1: rank {r} exited with {p.returncode}:\n{f.read()[-3000:]}")
+
+    idx = ProteomeIndex.load(f"{c.tfa}.hp.k24.scaled5.sig.zip.ksx", device="cuda")
+    n_total = idx.inverted.n_postings
+    results = []
+    for r in range(D1_WORLD):
+        with open(paths[r]["result"]) as f:
+            res = json.load(f)
+        results.append(res)
+        got = np.load(paths[r]["index"])
+        if not (
+            got["names"].tolist() == idx.names and np.array_equal(got["mins"], idx.mins)
+            and got["mins"].dtype == np.uint64 and np.array_equal(got["abundances"], idx.abundances)
+            and np.array_equal(got["offsets"], idx.offsets)
+        ):
+            raise SystemExit(f"path D1: rank {r}'s merged index differs from the main path's index")
+        lo, hi = res["hash_range"]
+        if not (lo <= res["g_min"] and res["g_max"] < hi):
+            raise SystemExit(f"path D1: rank {r}'s postings leave its hash range [{lo}, {hi})")
+        share = res["n_local_postings"] / n_total
+        if not 0.45 <= share <= 0.55:
+            raise SystemExit(f"path D1: rank {r} holds {share:.3f} of the postings, not 45-55%")
+        if _read_bytes(paths[r]["many"]) != _read_bytes(c.search_csv):
+            raise SystemExit(f"path D1: rank {r}'s sharded manysearch CSV differs from the main path's search CSV")
+        if _read_bytes(paths[r]["multi"]) != _read_bytes(c.multisearch_csv):
+            raise SystemExit(f"path D1: rank {r}'s sharded multisearch CSV differs from path C's")
+        if res["launches"]["masked_window_keys"] <= 0:
+            raise SystemExit(f"path D1: rank {r} launched no sketch kernel")
+        if res["validations"] <= 0:
+            raise SystemExit(f"path D1: rank {r} never ran the sparse cross-check on its shard")
+        if not res["device"].startswith("cuda"):
+            raise SystemExit(f"path D1: rank {r} ran on {res['device']}")
+        w, rep, ex = res["walls"], res["exchange_replica"], res["exchange"]
+        log(
+            f"path D1 rank {r} ({smi}; on {res['device']}, shared with the other rank): rendezvous "
+            f"{w['rendezvous']:.2f} s, build_distributed {w['build_distributed']:.2f} s (of it exchange "
+            f"{rep['seconds']:.2f} s, {rep['bytes_sent']} B sent / {rep['bytes_received']} B "
+            f"received), build_sharded_index {w['build_sharded']:.2f} s, save {w['save']:.2f} s, load "
+            f"{w['load']:.3f} s, sharded manysearch {w['manysearch']:.2f} s, sharded multisearch "
+            f"{w['multisearch']:.2f} s; all exchanges {ex['seconds']:.2f} s, {ex['bytes_sent']} B sent / "
+            f"{ex['bytes_received']} B received; shard holds {res['n_local_postings']} postings "
+            f"({100 * share:.1f}% of {n_total}) in [{lo}, {hi}); launches {res['launches']}; "
+            f"sparse cross-check runs {res['validations']}"
+        )
+    if sum(r["n_local_postings"] for r in results) != n_total:
+        raise SystemExit("path D1: the shards' posting counts do not add up to the index's")
+    log(
+        f"path D1: {D1_WORLD} ranks on one card, Gloo group over localhost, {wall:.1f} s in all (host clock, "
+        f"with both ranks' start-up); both merged indexes equal the main path's ({len(idx)} targets, "
+        f"{len(idx.mins)} hashes); both manysearch CSVs equal the main path's search CSV and both "
+        f"multisearch CSVs path C's, byte for byte"
+    )
+    return results[0]["launches"]
+
+
+def path_d2_phase(c: Corpus, smi: str) -> dict:
+    """A mesh of four shards in this process. Returns its launch counts."""
+    from kmerseek_tpu_torch.core import search as search_mod
+    from kmerseek_tpu_torch.core.alphabet import validate_resolve_batch
+    from kmerseek_tpu_torch.core.fasta import pack_batch
+    from kmerseek_tpu_torch.core.index import IndexConfig
+    from kmerseek_tpu_torch.entry import dryrun_multichip
+    from kmerseek_tpu_torch.parallel import dist as pdist
+
+    mesh = pdist.make_mesh(4)
+    reset_launches()
+    target = ProteomeIndex.load(f"{c.tfa}.hp.k24.scaled5.sig.zip.ksx", device="cuda")
+    query = search_mod._as_index(f"{c.qfa}.hp.k24.scaled5.sig.zip", device="cuda")
+    inv = target.inverted
+    q_keys, q_valid = query.dense_device_keys()
+
+    def timed(fn, reps=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps
+
+    # dense, position-sharded: the first call uploads the four slices
+    _, t_first = timed(lambda: pdist.sharded_inverted_search(mesh, inv, q_keys, q_valid))
+    (counts, weights), t_block = timed(lambda: pdist.sharded_inverted_search(mesh, inv, q_keys, q_valid), reps=5)
+    (counts_h, weights_h), t_copy = timed(
+        lambda: tuple(x.cpu().numpy() for x in pdist.sharded_inverted_search(mesh, inv, q_keys, q_valid))
+    )
+    if not (np.array_equal(counts_h, c.dense_counts) and np.array_equal(weights_h, c.dense_weights)):
+        raise SystemExit("path D2: sharded_inverted_search differs from path C's dense engine")
+    slices, local_n = pdist._sharded_sparse_program(mesh, inv)
+    shard_postings = [int(s.gk.shape[0]) for s in slices]
+
+    # sparse, position-sharded, densified
+    hits, t_sparse = timed(lambda: pdist.sharded_sparse_search(mesh, inv, q_keys, q_valid))
+    ns = np.zeros_like(c.dense_counts)
+    nw = np.zeros_like(c.dense_weights)
+    ns[hits.q, hits.t] = hits.count
+    nw[hits.q, hits.t] = hits.weight.astype(np.int32)
+    if hits.n_hits != len(hits.q) or not (np.array_equal(ns, c.dense_counts) and np.array_equal(nw, c.dense_weights)):
+        raise SystemExit("path D2: sharded_sparse_search densified differs from path C's dense engine")
+    pdist.clear_sharded_sparse_cache(inv)
+    del counts, weights, counts_h, weights_h, ns, nw
+
+    # target-sharded pair statistics against path B's, rows in FASTA order
+    n_sub = c.pair_counts.shape[1]
+    sub = ProteomeIndex.from_arrays(
+        IndexConfig(), target.names[:n_sub], target.mins[: target.offsets[n_sub]],
+        target.abundances[: target.offsets[n_sub]], target.offsets[: n_sub + 1], device="cuda",
+    )
+    row_of = {name: i for i, name in enumerate(query.names)}
+    rows = [row_of[name] for name in c.qnames]
+    (d_n, d_w), t_stats = timed(lambda: pdist.distributed_manysearch_stats(query, sub, mesh))
+    if not (np.array_equal(d_n[rows], c.pair_counts) and np.array_equal(d_w[rows], c.pair_weighted)):
+        raise SystemExit("path D2: distributed_manysearch_stats differs from path B's pairwise_stats")
+
+    # the sharded pipeline step: 1,024 query rows split four ways
+    arr, lens = pack_batch(validate_resolve_batch(c.queries))
+    cap = sketch_mod.sketch_capacity(arr.shape[1], 24, 5)
+    cap = max((cap + 127) // 128 * 128, 128)
+    step = pdist.make_dist_pipeline_step(mesh, k=24, scaled=5, moltype="hp", capacity=cap)
+    t_sharded = pdist.shard_targets(mesh, *sub.dense_device_arrays())
+    out, t_step = timed(lambda: step(arr, lens, *t_sharded))
+    if not (
+        np.array_equal(out.intersect.cpu().numpy()[:, :n_sub], c.pair_counts)
+        and np.array_equal(out.weighted.cpu().numpy()[:, :n_sub], c.pair_weighted)
+    ):
+        raise SystemExit("path D2: make_dist_pipeline_step differs from path B's pairwise_stats")
+    if int(out.total_retained) != len(query.mins):
+        raise SystemExit(
+            f"path D2: total_retained {int(out.total_retained)} is not the sum of the query sketch sizes {len(query.mins)}"
+        )
+    _, t_dry = timed(lambda: dryrun_multichip(4))
+    counts_d = launches()
+    log(
+        f"path D2 ({smi}): mesh of {mesh.size} shards on {sorted({str(d) for d in mesh.devices})} (logical "
+        f"shards of one card: the layout, not a scaling); postings per shard {shard_postings} of "
+        f"{inv.n_postings} (max_run {inv.max_run}); sharded_inverted_search {len(query)} x {len(target)}: "
+        f"{t_first * 1e3:.1f} ms the first call (uploads the slices), {t_block * 1e3:.2f} ms a block with the "
+        f"matrices left on the card = {len(query) / t_block:.0f} queries/s, {t_copy * 1e3:.1f} ms with both "
+        f"matrices copied to the host; equal to path C's dense engine on all {c.dense_counts.size} pairs"
+    )
+    log(
+        f"path D2 ({smi}): sharded_sparse_search {t_sparse * 1e3:.1f} ms ({hits.n_hits} hit pairs, densified "
+        f"equal to the dense counts and weighted sums); distributed_manysearch_stats {len(query)} x {n_sub} "
+        f"{t_stats:.2f} s and make_dist_pipeline_step ({arr.shape[0]} x {arr.shape[1]} residues, capacity {cap}) "
+        f"{t_step:.2f} s, both equal to path B's pairwise_stats; total_retained {int(out.total_retained)} = the "
+        f"query sketch sizes; dryrun_multichip(4) {t_dry:.2f} s; launches {counts_d}"
+    )
+    if min(counts_d.values()) <= 0:
+        raise SystemExit(f"path D2 left a kernel unlaunched: {counts_d}")
+    return counts_d
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true", help="stop after the kernel phase")
+    ap.add_argument("--path-d-worker", type=int, default=None, metavar="RANK", help="run as one rank of path D's group")
+    ap.add_argument("--init-method", help="the group's tcp:// address (with --path-d-worker)")
+    ap.add_argument("--workdir", help="the starting process's work directory (with --path-d-worker)")
     args = ap.parse_args()
+    if args.path_d_worker is not None:
+        return path_d_worker(args.path_d_worker, args.init_method, args.workdir)
 
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
     if not torch.cuda.is_available():
@@ -1057,17 +1375,29 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="kmerseek-smoke-") as workdir:
         c = Corpus(np.random.default_rng(args.seed), workdir)
         t0 = time.perf_counter()
-        entries["masked_window_keys"]["launches"] = main_path_phase(c)
+        by_path = {}  # every kernel's launches in every path's run
+        by_path["main"] = main_path_phase(c)
+        entries["masked_window_keys"]["launches"] = by_path["main"]["masked_window_keys"]
         log(f"main-path phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        entries["window_hashes"]["launches"] = path_a_phase(c)
+        by_path["A"] = path_a_phase(c)
+        entries["window_hashes"]["launches"] = by_path["A"]["window_hashes"]
         log(f"path A phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        entries["bitonic_sort_rows"]["launches"] = path_b_phase(c)["bitonic_sort_rows"]
+        by_path["B"] = path_b_phase(c)
+        entries["bitonic_sort_rows"]["launches"] = by_path["B"]["bitonic_sort_rows"]
         log(f"path B phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        path_c_phase(c, smi)
+        by_path["C"] = path_c_phase(c, smi)
         log(f"path C phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path["D1 rank 0"] = path_d1_phase(c, smi)
+        log(f"path D1 phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path["D2"] = path_d2_phase(c, smi)
+        log(f"path D2 phase: {time.perf_counter() - t0:.1f} s")
+        for name, e in entries.items():
+            e["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
 
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)

@@ -3,8 +3,9 @@
 A port of the JAX package ``kmerseek_tpu`` beside it, module for
 module: FASTA ingest, FracMinHash sketching over the protein / dayhoff
 / hp alphabets, the ``.ksx`` index with its inverted postings,
-manysearch and multisearch with the sparse device cross-check, and the
-dense inverted engine. The sketch kernels and the row sort are
+manysearch and multisearch with the sparse device cross-check, the
+dense inverted engine, and ``parallel/`` (process groups, the
+hash-range-sharded index, sharded search over a device mesh). The sketch kernels and the row sort are
 hand-written CUDA for Hopper (``csrc/``); the rest is plain PyTorch. Results are bit-equal to the JAX package: hashes,
 mins, abundances, posting order, hit lists and CSV bytes.
 
@@ -35,6 +36,20 @@ def __getattr__(name):
         from .core import search as _search
 
         return getattr(_search, name)
+    if name in (
+        "ShardedProteomeIndex",
+        "build_sharded_index",
+        "load_sharded_index",
+        "sharded_manysearch_columns",
+        "sharded_multisearch_columns",
+    ):
+        from .parallel import sharded as _sharded
+
+        return getattr(_sharded, name)
+    if name == "build_distributed_index":
+        from .parallel.multihost import build_distributed_index
+
+        return build_distributed_index
     if name == "Signature":
         from .core.signature import Signature
 

@@ -42,6 +42,54 @@ def generate_index_path(fasta: str, moltype: str, ksize: int, scaled: int) -> st
     return f"{fasta}.{moltype}.k{ksize}.scaled{scaled}.{INDEX_SUFFIX}"
 
 
+def dense_name_ranks(names: Sequence[str]) -> np.ndarray:
+    """Dense lexicographic rank of each name (equal names share a rank):
+    search output sorts by these integers instead of the strings."""
+    arr = np.asarray(names)
+    order = np.argsort(arr, kind="stable")
+    snames = arr[order]
+    dense = np.cumsum(
+        np.concatenate([[0], (snames[1:] != snames[:-1]).astype(np.int64)])
+    ) if len(snames) else np.zeros(0, np.int64)
+    ranks = np.empty(len(arr), np.int64)
+    ranks[order] = dense
+    return ranks
+
+
+def write_npy_member(path: str, name: str, arr) -> Tuple[str, dict]:
+    """Write ``{path}/{name}.npy`` through a temp file and ``os.replace``
+    (atomic, and re-saving a loaded index into its own directory never
+    truncates a live memmap). Returns the member's manifest record."""
+    fp = os.path.join(path, f"{name}.npy")
+    tmp = f"{fp}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.save(f, np.ascontiguousarray(arr))
+    os.replace(tmp, fp)
+    return name, {
+        "bytes": os.path.getsize(fp),
+        "len": int(len(arr)),
+        "dtype": str(np.asarray(arr).dtype),
+    }
+
+
+def load_npy_members(path: str, files: dict, what: str) -> dict:
+    """mmap the ``.npy`` members a manifest lists (read-only), checking
+    each file's size and length against its record; ``what`` names the
+    container in the error (``.ksx``, ``shard``)."""
+    arrs = {}
+    for name, rec in files.items():
+        fp = os.path.join(path, f"{name}.npy")
+        if not os.path.exists(fp) or os.path.getsize(fp) != rec["bytes"]:
+            raise ValueError(
+                f"corrupt {what}: {name}.npy missing or size-mismatched "
+                f"vs manifest at {path}"
+            )
+        arrs[name] = np.load(fp, mmap_mode="r")
+        if len(arrs[name]) != rec["len"]:
+            raise ValueError(f"corrupt {what}: {name}.npy length mismatch at {path}")
+    return arrs
+
+
 @dataclass
 class IndexConfig:
     """Validated sketch parameters."""
@@ -218,6 +266,31 @@ class ProteomeIndex:
             device=device,
         )
 
+    @classmethod
+    def build_distributed(
+        cls,
+        fasta: str,
+        config: Optional[IndexConfig] = None,
+        *,
+        batch_size: int = 1000,
+        ambiguity_policy: str = "first",
+        device=None,
+    ) -> "ProteomeIndex":
+        """Multi-process data-parallel build (``parallel.multihost``):
+        each process sketches its round-robin record shard on its device
+        and the shards are all-gathered — every process returns the
+        identical index, equal bit for bit to a single-process
+        ``build``."""
+        from ..parallel.multihost import build_distributed_index
+
+        return build_distributed_index(
+            fasta,
+            config,
+            batch_size=batch_size,
+            ambiguity_policy=ambiguity_policy,
+            device=device,
+        )
+
     # ------------------------------------------------------------------
     # views
     # ------------------------------------------------------------------
@@ -278,15 +351,7 @@ class ProteomeIndex:
         """Dense lexicographic rank of each signature's name (equal names
         share a rank): search output sorts by integer ranks."""
         if self._name_ranks is None:
-            arr = np.asarray(self.names)
-            order = np.argsort(arr, kind="stable")
-            snames = arr[order]
-            dense = np.cumsum(
-                np.concatenate([[0], (snames[1:] != snames[:-1]).astype(np.int64)])
-            ) if len(snames) else np.zeros(0, np.int64)
-            ranks = np.empty(len(arr), np.int64)
-            ranks[order] = dense
-            self._name_ranks = ranks
+            self._name_ranks = dense_name_ranks(self.names)
         return self._name_ranks
 
     @property
@@ -312,22 +377,43 @@ class ProteomeIndex:
             )
         return self._inverted
 
+    def _dense_slots(self, pad_multiple: int):
+        """(S, rows, cols): the padded width and every CSR element's
+        slot in the dense ``(T, S)`` layout."""
+        counts = self.counts
+        S = int(counts.max(initial=1))
+        S = max(((S + pad_multiple - 1) // pad_multiple) * pad_multiple, pad_multiple)
+        rows = np.repeat(np.arange(len(self)), counts)
+        cols = np.arange(len(self.mins)) - np.repeat(self.offsets[:-1], counts)
+        return S, rows, cols
+
     def dense_device_keys(self, pad_multiple: int = 128):
         """Padded ``(T, S)`` int64 sketch keys on ``self.device`` and the
         ``(T, S)`` validity mask; S = max sketch size rounded up to
         ``pad_multiple``, padding slots hold the u64::MAX sentinel."""
-        T = len(self)
-        counts = self.counts
-        S = int(counts.max(initial=1))
-        S = max(((S + pad_multiple - 1) // pad_multiple) * pad_multiple, pad_multiple)
-        keys = np.full((T, S), -1, np.int64)
-        rows = np.repeat(np.arange(T), counts)
-        cols = np.arange(len(self.mins)) - np.repeat(self.offsets[:-1], counts)
+        S, rows, cols = self._dense_slots(pad_multiple)
+        keys = np.full((len(self), S), -1, np.int64)
         keys[rows, cols] = self.mins.view(np.int64)
-        valid = np.arange(S)[None, :] < counts[:, None]
+        valid = np.arange(S)[None, :] < self.counts[:, None]
         return (
             torch.from_numpy(keys).to(self.device),
             torch.from_numpy(valid).to(self.device),
+        )
+
+    def dense_device_arrays(self, pad_multiple: int = 128):
+        """Padded ``(T, S)`` arrays for ``ops.intersect.pairwise_stats``
+        on ``self.device``: ``(keys int64, abund int32, counts int32)``,
+        keys as in ``dense_device_keys``, abundances 0 in the padding.
+        (The JAX method returns the keys as a (hi, lo) pair.)"""
+        S, rows, cols = self._dense_slots(pad_multiple)
+        keys = np.full((len(self), S), -1, np.int64)
+        keys[rows, cols] = self.mins.view(np.int64)
+        ab = np.zeros((len(self), S), np.int32)
+        ab[rows, cols] = self.abundances
+        return (
+            torch.from_numpy(keys).to(self.device),
+            torch.from_numpy(ab).to(self.device),
+            torch.from_numpy(self.counts).to(self.device),
         )
 
     # ------------------------------------------------------------------
@@ -336,21 +422,6 @@ class ProteomeIndex:
 
     def save(self, path: str) -> str:
         os.makedirs(path, exist_ok=True)
-
-        def _write(item):
-            # temp + os.replace: atomic, and re-saving a loaded index
-            # into its own directory never truncates a live memmap
-            name, arr = item
-            fp = os.path.join(path, f"{name}.npy")
-            tmp = f"{fp}.tmp-{os.getpid()}"
-            with open(tmp, "wb") as f:
-                np.save(f, np.ascontiguousarray(arr))
-            os.replace(tmp, fp)
-            return name, {
-                "bytes": os.path.getsize(fp),
-                "len": int(len(arr)),
-                "dtype": str(np.asarray(arr).dtype),
-            }
 
         inv = self.inverted.with_buckets()
         members = {
@@ -364,7 +435,7 @@ class ProteomeIndex:
             "inv_bucket_starts": inv.bucket_starts,
         }
         with ThreadPoolExecutor(max_workers=3) as pool:
-            futures = [pool.submit(_write, it) for it in members.items()]
+            futures = [pool.submit(write_npy_member, path, *it) for it in members.items()]
             sums = {
                 "mins": int(self.mins.sum(dtype=np.uint64)),
                 "abundances": int(self.abundances.sum(dtype=np.int64)),
@@ -434,17 +505,7 @@ class ProteomeIndex:
             raise ValueError(f"{path}: format-1 .ksx (no manifest) is not supported")
         with open(manifest_path) as f:
             manifest = json.load(f)
-        arrs = {}
-        for name, rec in manifest["files"].items():
-            fp = os.path.join(path, f"{name}.npy")
-            if not os.path.exists(fp) or os.path.getsize(fp) != rec["bytes"]:
-                raise ValueError(
-                    f"corrupt .ksx: {name}.npy missing or size-mismatched "
-                    f"vs manifest at {path}"
-                )
-            arrs[name] = np.load(fp, mmap_mode="r")
-            if len(arrs[name]) != rec["len"]:
-                raise ValueError(f"corrupt .ksx: {name}.npy length mismatch at {path}")
+        arrs = load_npy_members(path, manifest["files"], ".ksx")
         if (
             int(arrs["offsets"][-1]) != len(arrs["mins"])
             or len(arrs["inv_g_hi"]) != len(arrs["mins"])

@@ -87,6 +87,16 @@ def _bucket_shift(max_hash: int) -> int:
     return max(64 - BUCKET_BITS - lead_z, 32)
 
 
+def longest_run(g: np.ndarray) -> int:
+    """Longest run of equal values in a sorted array (1 for an empty one)."""
+    if not len(g):
+        return 1
+    boundaries = np.flatnonzero(np.diff(g) != 0)
+    run_starts = np.concatenate([[0], boundaries + 1])
+    run_ends = np.concatenate([boundaries + 1, [len(g)]])
+    return int((run_ends - run_starts).max())
+
+
 def build_inverted_np(
     mins: np.ndarray, abundances: np.ndarray, offsets: np.ndarray
 ) -> InvertedIndex:
@@ -99,15 +109,8 @@ def build_inverted_np(
     g = mins[order]
     tid = tid[order]
     ab = np.asarray(abundances)[order].astype(np.int32)
-    if len(g):
-        boundaries = np.flatnonzero(np.diff(g) != 0)
-        run_starts = np.concatenate([[0], boundaries + 1])
-        run_ends = np.concatenate([boundaries + 1, [len(g)]])
-        max_run = int((run_ends - run_starts).max())
-    else:
-        max_run = 1
     g_hi, g_lo = split_np(g)
-    return InvertedIndex(g_hi, g_lo, tid, ab, T, max_run).with_buckets()
+    return InvertedIndex(g_hi, g_lo, tid, ab, T, longest_run(g)).with_buckets()
 
 
 class DevicePostings(NamedTuple):
@@ -161,7 +164,10 @@ def clear_device_postings(inv: Optional[InvertedIndex] = None) -> None:
     """Release cached device copies of postings (device memory and the
     host references that keep them): of ``inv`` alone, on every device,
     or of every index when ``inv`` is None. For services that retire an
-    index."""
+    index. The sharded slices of ``parallel.dist`` go with them."""
+    from ..parallel.dist import clear_sharded_sparse_cache
+
+    clear_sharded_sparse_cache(inv)
     if inv is None:
         _DEVICE_CACHE.clear()
         return

@@ -12,7 +12,11 @@ function) and ``torch.profiler`` (device time by kernel):
   ``index --extract-kmers`` and ``search --extract-kmers
   --stitch-per-query`` in chip_smoke's stitching alphabet (path A);
 * ``do_multisearch`` on the two ``.sig.zip`` files and one
-  ``_device_pair_stats`` block of the dense inverted engine (path C).
+  ``_device_pair_stats`` block of the dense inverted engine (path C);
+* ``parallel/`` in this one process (path D): ``build_sharded_index`` as
+  the only rank (the whole FASTA, every exchange a no-op), both sharded
+  searches against it, and one ``sharded_inverted_search`` block and one
+  ``sharded_sparse_search`` on a mesh of four shards.
 
 Prints the wall time of each command, the device's busy share (summed
 device kernel time over wall time), the top device kernels and the top
@@ -142,6 +146,20 @@ def main() -> int:
         target = ProteomeIndex.load(f"{tsig}.ksx")
         search_mod._device_pair_stats(query, target)  # postings uploaded, allocator warm
         run("dense_pair_stats", lambda: search_mod._device_pair_stats(query, target), args.out)
+
+        from kmerseek_tpu_torch.parallel import dist as pdist
+        from kmerseek_tpu_torch.parallel import sharded
+
+        box = {}
+        run("build_sharded_index", lambda: box.update(sh=sharded.build_sharded_index(tfa)), args.out)
+        run("sharded_manysearch", lambda: sharded.sharded_manysearch_columns(query, box["sh"]), args.out)
+        run("sharded_multisearch", lambda: sharded.sharded_multisearch_columns(query, box["sh"]), args.out)
+        mesh = pdist.make_mesh(4)
+        q_keys, q_valid = query.dense_device_keys()
+        inv = target.inverted
+        pdist.sharded_inverted_search(mesh, inv, q_keys, q_valid)  # slices uploaded, allocator warm
+        run("sharded_inverted_search", lambda: pdist.sharded_inverted_search(mesh, inv, q_keys, q_valid), args.out)
+        run("sharded_sparse_search", lambda: pdist.sharded_sparse_search(mesh, inv, q_keys, q_valid), args.out)
     return 0
 
 

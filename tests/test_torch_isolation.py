@@ -1,8 +1,10 @@
 """The port stands alone and runs on the card by default.
 
-* importing every port module, ``chip_smoke`` and
-  ``profile_torch_main_path`` pulls in neither jax
-  nor any ``kmerseek_tpu`` module;
+* importing every port module (``parallel/`` included), ``chip_smoke``
+  and ``profile_torch_main_path`` pulls in neither jax nor any
+  ``kmerseek_tpu`` module, and no import statement of theirs, at top
+  level or inside a function (``chip_smoke``'s worker mode imports
+  there), names one;
 * without a CUDA device, entry points given no device raise instead of
   running on the CPU;
 * each CUDA wrapper given a CPU tensor takes the plain version and
@@ -35,6 +37,9 @@ for n in names:
 import chip_smoke, profile_torch_main_path, bench_torch_kernels_ab
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "kmerseek_tpu" or m.startswith("kmerseek_tpu."))
+missing = [n for n in ("parallel", "parallel.multihost", "parallel.sharded", "parallel.dist")
+           if "kmerseek_tpu_torch." + n not in names]
+assert not missing, missing
 print(len(names), bad)
 assert not bad, bad
 """
@@ -48,6 +53,40 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     n, bad = out.stdout.split(maxsplit=1)
     assert int(n) >= 30 and bad.strip() == "[]"
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "kmerseek_tpu_torch")
+    out = [os.path.join(REPO, n) for n in ("chip_smoke.py", "profile_torch_main_path.py", "bench_torch_kernels_ab.py")]
+    for root, _dirs, files in os.walk(pkg):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_import_statement_names_jax_or_the_jax_package():
+    """Every ``import`` of the port and its scripts, wherever it stands:
+    a lazy import inside a function (an entry point of ``parallel/``,
+    ``chip_smoke``'s worker mode) is one the import probe never runs."""
+    import ast
+
+    sources = _port_sources()
+    assert sum("/parallel/" in p for p in sources) == 4
+    bad = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [
+                f"{os.path.relpath(path, REPO)}:{node.lineno} {m}" for m in mods
+                if m.split(".")[0] in ("jax", "jaxlib", "kmerseek_tpu")
+            ]
+    assert not bad, bad
 
 
 def test_entry_points_default_to_cuda(tmp_path):
