@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, kernel checks,
-and the port's six paths at the scale of a human reference proteome.
+and the port's seven paths at the scale of a human reference proteome.
 
     python3 chip_smoke.py [--seed N] [--kernels-only]
 
@@ -90,7 +90,8 @@ Phases (each prints its lines; any failure exits non-zero):
    ``make_dist_pipeline_step`` (1,024 query rows split four ways
    against the first 2,048 targets) equal path B's ``pairwise_stats``,
    the step's ``total_retained`` is the sum of the query sketch sizes,
-   and ``dryrun_multichip(4)`` passes. All three kernels launched. Four
+   and ``dryrun_multichip(4)`` passes, its 120,000-target stage included
+   (its summary is printed). All three kernels launched. Four
    logical shards on one card show the layout, not a scaling;
 9. path E, the host side, on the same corpus. E1: ``index --engine
    native`` (the C++ CPU sketcher) writes the main path's ``.sig.zip``
@@ -108,11 +109,33 @@ Phases (each prints its lines; any failure exits non-zero):
    search CSV byte for byte, and so does a ``.ksx`` with one damaged
    posting under ``KMERSEEK_LOAD_VERIFY=full`` (without it the damage
    loses a hit). Each step's products land in a directory of their own;
-10. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+10. path F, the sparse and dense engines' serving surface (plain PyTorch:
+   no kernel of the port runs, the launch counts stay 0). F1, cold
+   serving of the main path's ``.ksx``: the 1,024 queries as 8 blocks of
+   128 through ``sparse_search`` learn hints, a ``save`` keeps them and a
+   fresh ``load`` seeds them back; block 1 is answered by
+   ``sparse_search_host`` while ``device_postings`` uploads in a thread,
+   ``warm_sparse_engine`` returns True without changing the hints, one
+   ``_sparse_launch`` runs under ``torch.cuda.set_sync_debug_mode
+   ("error")``, and ``sparse_search_stream`` serves the other 7 blocks;
+   every block equals its per-block ``sparse_search`` and the host route,
+   and their union, densified, equals path C's matrices. F2:
+   ``build_inverted_dev`` equals the host build (columns, bucket table,
+   scalars, ``max_ab``); ``inverted_pair_stats_packed`` (bucketed and
+   full-range) and ``inverted_pair_stats_bucketed`` equal path C's
+   matrices; ``autotune_dense_block`` records its winner, which
+   ``inverted_search`` then dispatches in; a ``.ksx`` saved from the
+   ``DeviceInvertedIndex`` holds the main path's members. F3, sparse
+   serving at SwissProt scale (``bench_search.measure_search_sparse``'s
+   synthetic index: 524,288 targets of 64-127 hashes from a 2^22 pool,
+   ~50M postings; 2,048 queries, ``q_chunk`` 512): the device build
+   equals the host build, ``sparse_search`` equals ``sparse_search_host``,
+   a stream of 6 blocks equals per-block calls, the warm-up returns True;
+11. a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line ``{"ok": true, "device": {...}}`` last. A kernel's
    ``launches`` counts its wrapper's calls in the run of the path that
    introduced it (``launches_by_path`` has every path's count, paths D
-   and E too); one sort call is one grid up to 131,072 keys a row
+   to F too); one sort call is one grid up to 131,072 keys a row
    (``ops.sort_cuda.sort_grid_launches``).
 """
 
@@ -1335,7 +1358,7 @@ def path_d2_phase(c: Corpus, smi: str) -> dict:
         raise SystemExit(
             f"path D2: total_retained {int(out.total_retained)} is not the sum of the query sketch sizes {len(query.mins)}"
         )
-    _, t_dry = timed(lambda: dryrun_multichip(4))
+    dry_line, t_dry = timed(lambda: dryrun_multichip(4))
     counts_d = launches()
     log(
         f"path D2 ({smi}): mesh of {mesh.size} shards on {sorted({str(d) for d in mesh.devices})} (logical "
@@ -1352,6 +1375,9 @@ def path_d2_phase(c: Corpus, smi: str) -> dict:
         f"{t_step:.2f} s, both equal to path B's pairwise_stats; total_retained {int(out.total_retained)} = the "
         f"query sketch sizes; dryrun_multichip(4) {t_dry:.2f} s; launches {counts_d}"
     )
+    if "; scale run ok" not in dry_line:
+        raise SystemExit(f"path D2: dryrun_multichip(4) ran no 120,000-target stage: {dry_line}")
+    log(f"path D2 ({smi}): dryrun_multichip(4) 120,000-target stage{dry_line.partition('; scale run ok')[2]}")
     if min(counts_d.values()) <= 0:
         raise SystemExit(f"path D2 left a kernel unlaunched: {counts_d}")
     return counts_d
@@ -1627,6 +1653,383 @@ def path_e_phase(c: Corpus, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path F: the sparse and dense engines' serving surface
+# ---------------------------------------------------------------------------
+
+F_BLOCK = 128  # F1's serving block: the 1,024 queries as 8 blocks
+# F3: the synthetic SwissProt-scale index of bench_search.measure_search_sparse
+F3_TARGETS, F3_SLOTS, F3_POOL_BITS, F3_QUERIES, F3_Q_CHUNK = 524288, 128, 22, 2048, 512
+
+
+def _same_hits(a, b, what: str) -> None:
+    if a.n_hits != b.n_hits or not all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in ("q", "t", "count", "weight")
+    ):
+        raise SystemExit(f"{what}: hit lists differ ({a.n_hits} against {b.n_hits} pairs)")
+
+
+def _clear_hint_caches() -> None:
+    from kmerseek_tpu_torch.ops import inverted as inv_mod
+    from kmerseek_tpu_torch.ops import sparse_search as sp
+
+    sp._EXPAND_CACHE.clear()
+    sp._HP_CACHE.clear()
+    inv_mod._DENSE_BLOCK_CACHE.clear()
+    inv_mod.clear_device_postings()
+
+
+def _device_trace(fn, workdir: str, name: str):
+    """``(kernel launches, device ms)`` of one call of ``fn`` under
+    ``torch.profiler``: CUDA kernel events and the device time of kernels,
+    copies and memsets, read from the exported Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(workdir, f"{name}.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = kernels + [e for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    return len(kernels), sum(float(e.get("dur", 0)) for e in busy) / 1e3
+
+
+def path_f1(c: Corpus, smi: str) -> None:
+    """Cold serving of the human-proteome index: learn hints, save, load,
+    answer block 1 on the host while the postings upload, warm up, stream
+    the rest."""
+    import threading
+
+    from kmerseek_tpu_torch.core import search as search_mod
+    from kmerseek_tpu_torch.ops import sparse_search as sp
+    from kmerseek_tpu_torch.ops.inverted import device_postings
+
+    query = search_mod._as_index(f"{c.qfa}{SIG}", device="cuda")
+    q_keys, q_valid = query.dense_device_keys()
+    Q, S = q_keys.shape
+    blocks = [(q_keys[a : a + F_BLOCK], q_valid[a : a + F_BLOCK]) for a in range(0, Q, F_BLOCK)]
+    host_blocks = [(k.cpu().numpy(), v.cpu().numpy()) for k, v in blocks]
+    main_ksx = os.path.join(c.main_products, os.path.basename(c.tfa) + SIG + ".ksx")
+    _clear_hint_caches()
+    target = ProteomeIndex.load(main_ksx, device="cuda")
+    serial = [sp.sparse_search(target, k, v) for k, v in blocks]  # learns E and the fetch lengths
+    saved = os.path.join(c.workdir, "f1.ksx")
+    target.save(saved)
+    learned = sp.export_learned_hints(target.inverted)
+    if not learned["expand"] or not learned["hp"]:
+        raise SystemExit(f"path F1: the sparse searches learned no hints: {learned}")
+    del target
+    _clear_hint_caches()
+
+    # a fresh server: load, answer block 1 on the host while the postings upload
+    t0 = time.perf_counter()
+    served = ProteomeIndex.load(saved, device="cuda")
+    t_load = time.perf_counter() - t0
+    if sp.export_learned_hints(served.inverted) != learned:
+        raise SystemExit("path F1: the loaded .ksx did not seed the hints it was saved with")
+    upload = {}
+
+    def _upload():
+        t = time.perf_counter()
+        device_postings(served.inverted, "cuda")
+        torch.cuda.synchronize()
+        upload["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=_upload)
+    thread.start()
+    t1 = time.perf_counter()
+    first = sp.sparse_search_host(served, *host_blocks[0])
+    t_host = time.perf_counter() - t1
+    t_first_answer = time.perf_counter() - t0
+    thread.join()
+    t1 = time.perf_counter()
+    warm = sp.warm_sparse_engine(served, (F_BLOCK, S))
+    t_warm = time.perf_counter() - t1
+    if warm is not True:
+        raise SystemExit("path F1: warm_sparse_engine did not return True")
+    if sp.export_learned_hints(served.inverted) != learned:
+        raise SystemExit("path F1: the warm-up changed the learned hints")
+
+    # the launch makes no host sync: sync debug mode "error" around it
+    inv = served.inverted
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = sp._sparse_launch(inv, *blocks[1], None, inv.max_run)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same_hits(sp._sparse_finish(inv, st), serial[1], "path F1: the sync-free launch")
+
+    # streamed and serial, alternating, three readings each
+    t_stream, t_serial = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        streamed = list(sp.sparse_search_stream(served, blocks[1:]))
+        t_stream.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        again = [sp.sparse_search(served, k, v) for k, v in blocks[1:]]
+        t_serial.append(time.perf_counter() - t1)
+        for got, want in zip(streamed + again, serial[1:] * 2):
+            _same_hits(got, want, "path F1: a streamed or repeated block")
+    n_kernels, dev_ms = _device_trace(lambda: sp.sparse_search(served, *blocks[1]), c.workdir, "f1-block")
+    answers = [first] + streamed
+    for b, (got, want, hk) in enumerate(zip(answers, serial, host_blocks)):
+        _same_hits(got, want, f"path F1 block {b}: served against per-block sparse_search")
+        _same_hits(sp.sparse_search_host(served, *hk), want, f"path F1 block {b}: the host route")
+    dense_c = np.zeros_like(c.dense_counts)
+    dense_w = np.zeros_like(c.dense_weights)
+    for b, h in enumerate(answers):
+        dense_c[h.q + b * F_BLOCK, h.t] = h.count
+        dense_w[h.q + b * F_BLOCK, h.t] = h.weight.astype(np.int32)
+    if not (np.array_equal(dense_c, c.dense_counts) and np.array_equal(dense_w, c.dense_weights)):
+        raise SystemExit("path F1: the served hit lists, densified, differ from path C's dense engine")
+    if sp.export_learned_hints(served.inverted) != learned:
+        raise SystemExit("path F1: serving the same blocks again changed the learned hints")
+    n_stream = len(blocks) - 1
+    log(
+        f"path F1 ({smi}): {len(blocks)} blocks of {F_BLOCK} queries x {S} slots against {inv.n_postings} "
+        f"postings ({sum(h.n_hits for h in answers)} hit pairs, equal per block to sparse_search and the host "
+        f"route, densified equal to path C's matrices); hints {len(learned['expand'])} expand + "
+        f"{len(learned['hp'])} hp saved and seeded back; load {t_load * 1e3:.1f} ms, host block "
+        f"{t_host * 1e3:.1f} ms, time to the first answer {t_first_answer * 1e3:.1f} ms; upload "
+        f"{upload['s'] * 1e3:.1f} ms in a thread meanwhile; warm-up {t_warm * 1e3:.1f} ms (True, hints "
+        f"unchanged); one launch under sync debug mode 'error' made no host sync; ms a block over "
+        f"{n_stream} blocks, three alternating readings: stream "
+        f"{', '.join(f'{t / n_stream * 1e3:.2f}' for t in t_stream)}, serial "
+        f"{', '.join(f'{t / n_stream * 1e3:.2f}' for t in t_serial)} = best "
+        f"{n_stream * F_BLOCK / min(t_stream):.0f} against {n_stream * F_BLOCK / min(t_serial):.0f} queries/s; "
+        f"one block under torch.profiler: {n_kernels} CUDA kernel launches, {dev_ms:.3f} ms of device time "
+        f"(kernels, copies, memsets) = {dev_ms / (min(t_serial) / n_stream * 1e3) * 100:.1f}% of the best serial "
+        f"block's wall"
+    )
+
+
+def path_f2(c: Corpus, smi: str) -> None:
+    """The dense engine's new surface on the same index."""
+    from kmerseek_tpu_torch.core import search as search_mod
+    from kmerseek_tpu_torch.ops import inverted as inv_mod
+
+    query = search_mod._as_index(f"{c.qfa}{SIG}", device="cuda")
+    q_keys, q_valid = query.dense_device_keys()
+    main_ksx = os.path.join(c.main_products, os.path.basename(c.tfa) + SIG + ".ksx")
+    _clear_hint_caches()
+    target = ProteomeIndex.load(main_ksx, device="cuda")
+    host = target.inverted
+    t0 = time.perf_counter()
+    dinv = inv_mod.build_inverted_dev(target.mins, target.abundances, target.offsets, "cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    same = all(np.array_equal(np.asarray(getattr(dinv, f)), np.asarray(getattr(host, f)))
+               for f in ("g_hi", "g_lo", "tid", "ab", "bucket_starts"))
+    scalars = [(getattr(dinv, f), getattr(host, f)) for f in ("n_targets", "max_run", "max_span", "bucket_shift")]
+    if not same or any(a != b for a, b in scalars) or dinv.max_ab != inv_mod.max_abundance(host):
+        raise SystemExit(f"path F2: build_inverted_dev differs from the host build ({scalars}, max_ab {dinv.max_ab})")
+
+    T = int(host.n_targets)
+    kw = dict(n_targets=T, max_run=host.max_run, bucket_shift=host.bucket_shift)
+    bucketed_steps = max(int(host.max_span).bit_length(), 1)
+    cols = [torch.from_numpy(np.asarray(getattr(host, f)).astype(np.int64)).cuda()
+            for f in ("g_hi", "g_lo", "tid", "ab", "bucket_starts")]
+    engines = {
+        "packed bucketed": lambda: inv_mod.inverted_pair_stats_packed(
+            dinv.g4_dev, dinv.bucket_starts_dev, q_keys, q_valid, span_steps=bucketed_steps, **kw),
+        "packed full-range": lambda: inv_mod.inverted_pair_stats_packed(
+            dinv.g4_dev, None, q_keys, q_valid, span_steps=max(int(dinv.n_postings).bit_length(), 1), **kw),
+        "split bucketed": lambda: inv_mod.inverted_pair_stats_bucketed(
+            *cols, q_keys, q_valid, span_steps=bucketed_steps, **kw),
+    }
+    block_ms = {}
+    for name, fn in engines.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_c, got_w = fn()
+        torch.cuda.synchronize()
+        block_ms[name] = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(got_c.cpu().numpy(), c.dense_counts) and np.array_equal(got_w.cpu().numpy(), c.dense_weights)):
+            raise SystemExit(f"path F2: inverted_pair_stats ({name}) differs from path C's matrices")
+    del got_c, got_w
+
+    results = inv_mod.autotune_dense_block(target)
+    winner = max(results, key=lambda b: results[b]["queries_per_second"])
+    if inv_mod.dense_block_hint(host) != winner:
+        raise SystemExit(f"path F2: autotune did not record its winner {winner}")
+    # five copies of the block: the learned block sets the dispatches
+    reps = 5
+    rows = []
+    real = inv_mod.inverted_pair_stats
+    inv_mod.inverted_pair_stats = lambda dp, qk, *a, **k: rows.append(qk.shape[0]) or real(dp, qk, *a, **k)
+    try:
+        big_c, big_w = inv_mod.inverted_search(target, q_keys.repeat(reps, 1), q_valid.repeat(reps, 1))
+    finally:
+        inv_mod.inverted_pair_stats = real
+    Q = q_keys.shape[0]
+    want_rows = [min(winner, reps * Q - a) for a in range(0, reps * Q, winner)]
+    if rows != want_rows:
+        raise SystemExit(f"path F2: inverted_search dispatched {rows}, not blocks of the learned {winner}")
+    big_c, big_w = big_c.cpu().numpy(), big_w.cpu().numpy()
+    for r in range(reps):
+        if not (np.array_equal(big_c[r * Q : (r + 1) * Q], c.dense_counts)
+                and np.array_equal(big_w[r * Q : (r + 1) * Q], c.dense_weights)):
+            raise SystemExit("path F2: inverted_search in the learned block differs from path C's matrices")
+    del big_c, big_w
+
+    # a .ksx saved from a device-built index (host columns from the CSR
+    # arrays, no download) holds the main path's members
+    fresh = inv_mod.build_inverted_dev(target.mins, target.abundances, target.offsets, "cuda")
+    target._inverted = fresh
+    out = os.path.join(c.workdir, "f2.ksx")
+    t0 = time.perf_counter()
+    target.save(out)
+    t_save = time.perf_counter() - t0
+    bad = _same_members(_ksx_members(out), _ksx_members(main_ksx))
+    if bad:
+        raise SystemExit(f"path F2: the .ksx saved from a DeviceInvertedIndex differs in {bad}")
+    log(
+        f"path F2 ({smi}): build_inverted_dev {t_build * 1e3:.1f} ms, equal to the host build (4 columns, bucket "
+        f"table, max_run {dinv.max_run}, max_span {dinv.max_span}, bucket_shift {dinv.bucket_shift}, max_ab "
+        f"{dinv.max_ab}); a {Q} x {T} block, equal to path C's matrices: "
+        + ", ".join(f"{n} {ms:.2f} ms" for n, ms in block_ms.items())
+        + "; autotune_dense_block "
+        + ", ".join(f"{b}: {r['queries_per_second']:.0f} queries/s (first call {r['compile_s'] * 1e3:.1f} ms)"
+                    for b, r in results.items())
+        + f" -> {winner}, used by inverted_search ({reps * Q} rows in {rows}); .ksx saved from the "
+        f"DeviceInvertedIndex in {t_save:.2f} s = the main path's members"
+    )
+
+
+def _f3_corpus():
+    """bench_search.measure_search_sparse's synthetic index and query
+    block (rng seed 1), here with 2,048 queries."""
+    rng = np.random.default_rng(1)
+    pool = np.unique(rng.integers(0, 2**62, size=1 << F3_POOL_BITS, dtype=np.uint64))
+    t_c = rng.integers(F3_SLOTS // 2, F3_SLOTS, size=F3_TARGETS).astype(np.int64)
+    vals = np.sort(pool[rng.integers(0, len(pool), size=(F3_TARGETS, F3_SLOTS))], axis=1)
+    keep = np.ones_like(vals, bool)
+    keep[:, 1:] = vals[:, 1:] != vals[:, :-1]
+    keep &= np.arange(F3_SLOTS)[None, :] < t_c[:, None]
+    mins = vals[keep]
+    offsets = np.concatenate([[0], np.cumsum(keep.sum(axis=1))]).astype(np.int64)
+    del vals, keep
+    q64 = np.where(
+        np.arange(F3_SLOTS)[None, :] % 2 == 0,
+        pool[rng.integers(0, len(pool), size=(F3_QUERIES, F3_SLOTS))],
+        rng.integers(0, 2**62, size=(F3_QUERIES, F3_SLOTS), dtype=np.uint64),
+    )
+    q64 = np.sort(q64, axis=1)
+    qv = np.ones(q64.shape, bool)
+    qv[:, 1:] = q64[:, 1:] != q64[:, :-1]
+    return mins, offsets, q64, qv
+
+
+def path_f3(c: Corpus, smi: str) -> None:
+    """Sparse serving at SwissProt scale: 524,288 targets, ~50M postings."""
+    from kmerseek_tpu_torch.ops import inverted as inv_mod
+    from kmerseek_tpu_torch.ops import sparse_search as sp
+    from kmerseek_tpu_torch.ops.u64 import u64_np_to_tensor
+
+    _clear_hint_caches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mins, offsets, q64, qv = _f3_corpus()
+    t_prep = time.perf_counter() - t0
+    ab = np.ones(len(mins), np.int64)
+    t0 = time.perf_counter()
+    dinv = inv_mod.build_inverted_dev(mins, ab, offsets, "cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = inv_mod.build_inverted_np(mins, ab, offsets)  # the native argsort
+    t_host_build = time.perf_counter() - t0
+    scalars = [(getattr(dinv, f), getattr(host, f)) for f in ("n_targets", "max_run", "max_span", "bucket_shift")]
+    for f in ("g_hi", "g_lo", "tid", "ab", "bucket_starts"):
+        if not np.array_equal(np.asarray(getattr(dinv, f)), np.asarray(getattr(host, f))):
+            raise SystemExit(f"path F3: build_inverted_dev's {f} differs from the host build")
+    if any(a != b for a, b in scalars):
+        raise SystemExit(f"path F3: build_inverted_dev's scalars differ from the host build: {scalars}")
+    t0 = time.perf_counter()
+    inv_mod.device_postings(host, "cuda")  # what a host-built index uploads
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    inv_mod.clear_device_postings(host)
+
+    class _Index:
+        inverted = dinv
+        device = torch.device("cuda")
+
+    idx = _Index()
+    q_keys = u64_np_to_tensor(q64, "cuda")
+    q_valid = torch.from_numpy(qv).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = sp.sparse_search(idx, q_keys, q_valid, q_chunk=F3_Q_CHUNK)
+    t_first = time.perf_counter() - t0
+    warm_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hits = sp.sparse_search(idx, q_keys, q_valid, q_chunk=F3_Q_CHUNK)
+        warm_s.append(time.perf_counter() - t0)
+    _same_hits(hits, first, "path F3: a repeated sparse_search")
+    n_kernels, dev_ms = _device_trace(
+        lambda: sp.sparse_search(idx, q_keys, q_valid, q_chunk=F3_Q_CHUNK), c.workdir, "f3-call"
+    )
+    t0 = time.perf_counter()
+    host_hits = sp.sparse_search_host(idx, q64.view(np.int64), qv)
+    t_host = time.perf_counter() - t0
+    _same_hits(first, host_hits, "path F3: sparse_search against sparse_search_host")
+    # a stream of six 512-query blocks (each <= q_chunk: one in flight)
+    rows = [(a % F3_QUERIES, a % F3_QUERIES + F3_Q_CHUNK) for a in range(0, 6 * F3_Q_CHUNK, F3_Q_CHUNK)]
+    per_block = {r: sp.sparse_search(idx, q_keys[r[0] : r[1]], q_valid[r[0] : r[1]]) for r in set(rows)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = list(sp.sparse_search_stream(idx, [(q_keys[a:b], q_valid[a:b]) for a, b in rows]))
+    t_stream = time.perf_counter() - t0
+    for r, got in zip(rows, streamed):
+        _same_hits(got, per_block[r], f"path F3: stream block {r}")
+    t0 = time.perf_counter()
+    warm = sp.warm_sparse_engine(idx, (F3_Q_CHUNK, F3_SLOTS))
+    t_warm = time.perf_counter() - t0
+    if warm is not True:
+        raise SystemExit("path F3: warm_sparse_engine did not return True")
+    peak = torch.cuda.max_memory_allocated()
+    best = min(warm_s)
+    log(
+        f"path F3 ({smi}): {F3_TARGETS} targets, {dinv.n_postings} postings (max_run {dinv.max_run}, max_span "
+        f"{dinv.max_span}), corpus made in {t_prep:.1f} s; build_inverted_dev {t_build:.2f} s, equal to the host "
+        f"build with the native argsort ({t_host_build:.2f} s); a host-built index's upload {t_upload:.2f} s; "
+        f"{F3_QUERIES} queries x {F3_SLOTS} slots, q_chunk {F3_Q_CHUNK} (C = {F3_QUERIES // F3_Q_CHUNK}): "
+        f"{first.n_hits} hit pairs, first call {t_first * 1e3:.1f} ms, warm "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in warm_s)} ms = {F3_QUERIES / best:.0f} queries/s (one call under "
+        f"torch.profiler: {n_kernels} CUDA kernel launches, {dev_ms:.2f} ms of device time = "
+        f"{dev_ms / (best * 1e3) * 100:.1f}% of the best warm wall); sparse_search_host {t_host:.2f} s, equal; "
+        f"stream of 6 blocks of {F3_Q_CHUNK} {t_stream / 6 * 1e3:.1f} ms a block = {6 * F3_Q_CHUNK / t_stream:.0f} queries/s, equal "
+        f"to per-block calls; warm_sparse_engine {t_warm * 1e3:.1f} ms (True); device memory peak "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)"
+    )
+    del dinv, host, idx, q_keys, q_valid
+    _clear_hint_caches()
+    torch.cuda.empty_cache()
+
+
+def path_f_phase(c: Corpus, smi: str) -> dict:
+    """F1 cold serving, F2 the dense engine's new surface, F3 sparse
+    serving at SwissProt scale. No kernel of the port runs here. Returns
+    the launch counts of the whole path."""
+    reset_launches()
+    for step in (path_f1, path_f2, path_f3):
+        t0 = time.perf_counter()
+        step(c, smi)
+        log(f"{step.__name__}: {time.perf_counter() - t0:.1f} s")
+    counts = launches()
+    log(f"path F launches {counts} (no kernel of the port is on this path)")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1705,6 +2108,9 @@ def main() -> int:
         t0 = time.perf_counter()
         by_path["E"] = path_e_phase(c, smi)
         log(f"path E phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path["F"] = path_f_phase(c, smi)
+        log(f"path F phase: {time.perf_counter() - t0:.1f} s")
         for name, e in entries.items():
             e["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
 

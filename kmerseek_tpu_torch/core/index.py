@@ -24,7 +24,9 @@ So ``"auto"`` always sketches on ``device``.
 Persistence is the JAX package's ``.ksx`` format 2: raw ``.npy``
 members, ``manifest.json``, ``metadata.json`` and ``hints.json``, so an
 index written by either package loads in the other. Format 1
-(``arrays.npz`` + ``inverted.npz``) loads too.
+(``arrays.npz`` + ``inverted.npz``) loads too. ``hints.json`` carries the
+engines' learned hints (``ops.sparse_search.export_learned_hints``):
+``save`` writes them, both loaders seed them.
 ``KMERSEEK_LOAD_VERIFY=full`` checks the postings of a format-2 load
 against the manifest's checksums, as format-1 loads always do, and
 rebuilds them on a mismatch.
@@ -101,6 +103,22 @@ def load_npy_members(path: str, files: dict, what: str) -> dict:
         if len(arrs[name]) != rec["len"]:
             raise ValueError(f"corrupt {what}: {name}.npy length mismatch at {path}")
     return arrs
+
+
+def _seed_hints(path: str, inv) -> None:
+    """Seed the learned-hint caches of a loaded index from its
+    ``hints.json`` (``ops.sparse_search.seed_learned_hints``). Hints are
+    advisory: a missing, unreadable or malformed file is ignored."""
+    hints_path = os.path.join(path, "hints.json")
+    if not os.path.exists(hints_path):
+        return
+    from ..ops.sparse_search import seed_learned_hints
+
+    try:
+        with open(hints_path) as f:
+            seed_learned_hints(inv, json.load(f))
+    except Exception:
+        pass
 
 
 class ProteomeIndexBuilder:
@@ -492,7 +510,8 @@ class ProteomeIndex:
     @property
     def inverted(self):
         """Globally sorted postings, built once on ``self.device``
-        (``ops.inverted.build_inverted``) or loaded from ``.ksx``."""
+        (``ops.inverted.build_inverted``; ``KMERSEEK_INVERTED_BUILD`` ∈
+        {auto, host, device} picks the build) or loaded from ``.ksx``."""
         if self._inverted is None:
             from ..ops.inverted import build_inverted
 
@@ -594,6 +613,8 @@ class ProteomeIndex:
         os.makedirs(path, exist_ok=True)
 
         inv = self.inverted.with_buckets()
+        if hasattr(inv, "ensure_host_from_source"):  # a DeviceInvertedIndex
+            inv.ensure_host_from_source(self.mins, self.abundances, self.offsets)
         members = {
             "mins": self.mins,
             "abundances": self.abundances,
@@ -647,10 +668,14 @@ class ProteomeIndex:
             lp = os.path.join(path, legacy)
             if os.path.exists(lp):
                 os.remove(lp)
-        # no learned sparse-engine hints in this package: written empty
-        # so a previous index's hints never survive a re-save
+        # the learned hints (the sparse engine's E and fetch lengths, the
+        # dense block): a warm start for a fresh process, never results.
+        # Written even when empty, so a previous index's hints never
+        # survive a re-save into this directory
+        from ..ops.sparse_search import export_learned_hints
+
         with open(os.path.join(path, "hints.json"), "w") as f:
-            json.dump({}, f)
+            json.dump(export_learned_hints(inv), f)
         if self.sequences is not None:
             seq_off = np.zeros(len(self.sequences) + 1, np.int64)
             np.cumsum([len(s) for s in self.sequences], out=seq_off[1:])
@@ -682,9 +707,6 @@ class ProteomeIndex:
             sq = np.load(seq_path)
             data, offs = sq["data"].tobytes(), sq["offsets"]
             sequences = [data[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
-        # hints.json (the JAX package's learned sparse-engine hints) is not
-        # read by either format's loader: this package has no sparse hints
-        # yet, and they are advisory (a warm start), never results
         manifest_path = os.path.join(path, "manifest.json")
         if os.path.exists(manifest_path):
             return cls._load_npy(path, meta, manifest_path, sequences, device)
@@ -747,6 +769,7 @@ class ProteomeIndex:
         else:
             inv = inv.with_buckets()
         idx._inverted = inv
+        _seed_hints(path, inv)
         return idx
 
     @classmethod
@@ -802,6 +825,7 @@ class ProteomeIndex:
                 )
                 return idx
         idx._inverted = inv
+        _seed_hints(path, inv)
         return idx
 
     # ------------------------------------------------------------------

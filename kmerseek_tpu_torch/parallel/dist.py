@@ -298,11 +298,11 @@ def sharded_sparse_search(
 
     The same position slices as ``sharded_inverted_search``; every shard
     gives its own (q, t, count, weight) hit list from its slice
-    (``ops.sparse_search._block_hits`` in full-range mode — a slice has
-    no bucket table). A (q, t) pair whose shared hashes span several
-    hash ranges surfaces on each of those shards, so the per-shard lists
-    merge ADDITIVELY on the host (``_merge_partial_hits``, the merge of
-    run-offset tiling).
+    (``ops.sparse_search.inverted_sparse_hits`` in full-range mode — a
+    slice has no bucket table). A (q, t) pair whose shared hashes span
+    several hash ranges surfaces on each of those shards, so the
+    per-shard lists merge ADDITIVELY on the host
+    (``_merge_partial_hits``, the merge of run-offset tiling).
 
     Long posting runs are probed in windows of ``run_chunk`` (default
     ``_RUN_TILE``) offsets, and the per-(shard, tile) partial lists
@@ -310,24 +310,27 @@ def sharded_sparse_search(
     keeps the true pair count). Returns a host ``SparseHits``, t
     ascending per q. (The JAX function's ``expand_e`` is a buffer budget
     of its TPU kernel; its result is this one for any value of it.)"""
-    from ..ops.sparse_search import _RUN_TILE, _block_hits, _empty_hits, _merge_partial_hits
+    from ..ops.sparse_search import _dp_hits, _empty_hits, _merge_partial_hits, _tile, _wide_weights_needed
 
     Q, S = q_keys.shape
     if inv.n_postings == 0:
         return _empty_hits()
     slices, local_n = _sharded_sparse_program(mesh, inv)
-    max_run, _steps = _local_bounds(inv, local_n)
-    tile = min(max_run, run_chunk if run_chunk is not None else _RUN_TILE)
-    tile = max(1, min(tile, (2**31 - 1) // max(Q * S, 1)))
-    # what _block_hits reads of an index: the slice's bounds, no table
-    local = inv._replace(max_run=max_run, max_span=local_n)
+    max_run, steps = _local_bounds(inv, local_n)
+    tile = min(_tile(run_chunk, Q, S), max_run)
+    wide = _wide_weights_needed(inv, S)
     q_valid = q_valid.to(torch.bool)
     queries = [(q_keys.to(dev), q_valid.to(dev)) for dev in mesh.devices]
     parts = []
     for off in range(0, max_run, tile):
         for dp, (qk, qv) in zip(slices, queries):
             if dp.gk.shape[0]:
-                parts.append(_block_hits(local, dp, qk, qv, run_offset=off, tile=tile))
+                parts.append(
+                    _dp_hits(
+                        dp, qk, qv, wide=wide, max_run=tile, n_targets=int(inv.n_targets),
+                        span_steps=steps, run_offset=off, true_max_run=max_run,
+                    )
+                )
     if not parts:
         return _empty_hits()
     return _merge_partial_hits(parts, capacity)

@@ -368,3 +368,15 @@ def test_dryrun_multichip_on_cpu_shards(n_shards, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dryrun_multichip(n_shards)
+
+
+def test_dryrun_scale_stage_reports_the_jax_numbers(jmesh):
+    """The 120,000-target stage: the port's summary suffix (postings, hit
+    pairs, shard residency) is the JAX stage's, character for character."""
+    import __graft_entry__
+
+    from kmerseek_tpu_torch.entry import _dryrun_sparse_scale
+
+    got = _dryrun_sparse_scale(tdist.make_mesh(8, device="cpu"))
+    assert got == __graft_entry__._dryrun_sparse_scale(jmesh)
+    assert "120000 targets / 2879967 postings, 2103 hit pairs" in got
