@@ -34,10 +34,10 @@ their device stages on the CUDA device unless ``device="cpu"`` is given.
 
 from __future__ import annotations
 
-import csv
 import gc
 import io
 import math
+import operator
 import os
 import sys
 import weakref
@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..ops.inverted import BUCKET_BITS
 from ..utils.metrics import count, note_sync, span
 from .index import ProteomeIndex
@@ -813,64 +814,121 @@ def _format_value(v) -> str:
     return str(v)
 
 
-def _format_column(vals: list) -> list:
-    """One column → CSV cell strings, quoting applied.
+# a cell holding one of these is quoted (csv QUOTE_MINIMAL with "\n" lines)
+_QUOTE_CHARS = (",", '"', "\n", "\r")
+_FLOAT_TYPES = frozenset((float, np.float64))
+_INT_TYPES = frozenset((int, np.int64))
 
-    Floats via ``repr`` of the builtin float (shortest round-trip, as
-    the rows path writes them). Numeric-derived strings never need
-    quoting; string columns get ``csv`` QUOTE_MINIMAL semantics (quote
-    if the value holds a delimiter, quote, or newline; embedded quotes
-    doubled) — byte-identical to ``csv.writer`` output."""
-    if len(vals) == 0:
-        return []
+
+def _quote(s: str) -> str:
+    """One cell as ``csv.writer`` writes it: quoted when it holds a
+    delimiter, a quote or a line break, embedded quotes doubled."""
+    if any(ch in s for ch in _QUOTE_CHARS):
+        return '"' + s.replace('"', '""') + '"'
+    return s
+
+
+def _typed_column(vals):
+    """One column → ``(typed, per_value)``, classified once by the exact
+    types of its values.
+
+    ``typed`` is a float64 array (a float64 column, or every value a
+    ``float`` or ``np.float64``), an int64 array (an int64 column, or
+    every value an ``int`` or ``np.int64`` that fits), or a list of
+    quoted ``str`` cells. Other numpy columns are classified by their
+    ``.tolist()`` values. Anything else (``np.float32`` scalars,
+    ``None``, ``bool``, ints beyond int64, mixed columns) goes through
+    ``_format_value`` one value at a time, and ``per_value`` is True."""
     if isinstance(vals, np.ndarray):
+        if vals.dtype in (np.float64, np.int64):
+            return vals, False
+        vals = vals.tolist()  # the values a row dict holds
+    types = set(map(type, vals))
+    if types <= _FLOAT_TYPES:
+        return np.fromiter(vals, np.float64, len(vals)), False
+    if types <= _INT_TYPES:
+        try:
+            return np.fromiter(vals, np.int64, len(vals)), False
+        except OverflowError:
+            pass
+    if types == {str}:
+        joined = "".join(vals)
+        if not any(ch in joined for ch in _QUOTE_CHARS):
+            return vals, False
+        return [_quote(v) for v in vals], False
+    return [_quote(_format_value(v)) for v in vals], True
+
+
+def _format_column(col) -> list:
+    """A typed column → its cells in Python: ``repr`` of each float
+    (shortest round-trip), ``str`` of each int; text cells as they are.
+    What ``native.format_csv`` writes, for a host without the library."""
+    if isinstance(col, np.ndarray):
         # .tolist() yields builtin scalars
-        if vals.dtype.kind == "f":
-            return list(map(repr, vals.tolist()))
-        return list(map(str, vals.tolist()))
-    v0 = vals[0]
-    if isinstance(v0, float):
-        return list(map(repr, vals))
-    if isinstance(v0, str):
-        return [
-            '"' + s.replace('"', '""') + '"'
-            if ('"' in s or "," in s or "\n" in s or "\r" in s)
-            else s
-            for s in vals
-        ]
-    return list(map(str, vals))
+        return list(map(repr if col.dtype == np.float64 else str, col.tolist()))
+    return col
 
 
 # rows per write block — bounds peak string memory on huge outputs
 _CSV_BLOCK_ROWS = 65536
 
 
+def _write_csv(fh, columns: Sequence[str], values: Sequence, n: int) -> None:
+    """Header, then ``n`` rows from ``values`` (one sequence of ``n``
+    values per column), byte-identical to ``csv.writer`` over
+    ``_format_value`` of each cell.
+
+    Each column is classified once (``_typed_column``); every
+    ``_CSV_BLOCK_ROWS`` rows are then formatted by one call of the C++
+    library (``native.format_csv``), or, without a C++ compiler, a
+    column at a time in Python. Counters ``rows_written``,
+    ``csv.native_rows`` (rows whose body the library assembled) and
+    ``csv.python_columns`` (columns formatted one value at a time in
+    Python: all of them without the library)."""
+    typed, per_value = [], 0
+    for v in values:
+        col, slow = _typed_column(v)
+        typed.append(col)
+        per_value += slow
+    header = [_quote(c) for c in columns]
+    if len(columns) == 1:
+        # csv.writer quotes the only field of a row when it is empty
+        header = [c or '""' for c in header]
+        if not isinstance(typed[0], np.ndarray):
+            typed[0] = [c or '""' for c in typed[0]]
+    fh.write(",".join(header) + "\n")
+    use_native = native.available()
+    for lo in range(0, n, _CSV_BLOCK_ROWS):
+        block = [c[lo:lo + _CSV_BLOCK_ROWS] for c in typed]
+        if use_native:
+            fh.write(native.format_csv(block, min(n - lo, _CSV_BLOCK_ROWS)))
+        else:
+            rows = zip(*map(_format_column, block))
+            fh.write("\n".join(map(",".join, rows)) + "\n")
+    count("rows_written", n)
+    count("csv.native_rows", n if use_native else 0)
+    count("csv.python_columns", per_value if use_native else len(typed))
+
+
+def _write_to(filename: Optional[str], columns: Sequence[str], values: Sequence, n: int) -> None:
+    if filename is None:
+        _write_csv(sys.stdout, columns, values, n)
+        sys.stdout.flush()
+    else:
+        with open(filename, "w", newline="") as f:
+            _write_csv(f, columns, values, n)
+
+
 def write_search_csv_columns(
     cols: Dict[str, list], filename: Optional[str] = None
 ) -> None:
-    """Stream a column-native result ({column: list}) as CSV.
-
-    Formats per *column* (one type dispatch + one ``map`` each), then
-    emits blocks of ``",".join``-ed rows in bounded memory; no per-row
-    dicts. Byte-identical to ``write_search_csv``. Span ``search.csv``
-    (counter ``rows_written``)."""
+    """Stream a column-native result ({column: list}) as CSV: numpy
+    columns go to the formatter as they are, with no per-row dicts.
+    Byte-identical to ``write_search_csv``. Span ``search.csv``
+    (counters of ``_write_csv``)."""
     with span("search.csv"):
-        formatted = [_format_column(v) for v in cols.values()]
-        n = len(formatted[0]) if formatted else 0
-
-        def _emit(fh):
-            fh.write(",".join(cols.keys()) + "\n")
-            for lo in range(0, n, _CSV_BLOCK_ROWS):
-                rows = zip(*(c[lo:lo + _CSV_BLOCK_ROWS] for c in formatted))
-                fh.write("\n".join(",".join(r) for r in rows) + "\n")
-            count("rows_written", n)
-
-        if filename is None:
-            _emit(sys.stdout)
-            sys.stdout.flush()
-        else:
-            with open(filename, "w", newline="") as f:
-                _emit(f)
+        values = list(cols.values())
+        _write_to(filename, list(cols.keys()), values, len(values[0]) if values else 0)
 
 
 def _write_output(cols: Dict[str, list], output: Optional[str]) -> None:
@@ -891,12 +949,15 @@ def write_search_parquet(cols: Dict[str, list], filename: str) -> None:
     pq.write_table(pa.table({k: pa.array(v) for k, v in cols.items()}), filename)
 
 
+def _columns_of_rows(rows: Sequence[Dict], columns: Sequence[str]) -> list:
+    """Row dicts → one tuple of values per column."""
+    if len(columns) == 1 or not rows:
+        return [[r[c] for r in rows] for c in columns]
+    return list(zip(*map(operator.itemgetter(*columns), rows)))
+
+
 def _write_rows(fh, rows: Sequence[Dict], columns: Sequence[str]) -> None:
-    w = csv.writer(fh, lineterminator="\n")
-    w.writerow(columns)
-    for r in rows:
-        w.writerow([_format_value(r[c]) for c in columns])
-    count("rows_written", len(rows))
+    _write_csv(fh, columns, _columns_of_rows(rows, columns), len(rows))
 
 
 def rows_to_csv(rows: Sequence[Dict], columns: Sequence[str]) -> str:
@@ -910,12 +971,7 @@ def write_search_csv(
     columns: Sequence[str],
     filename: Optional[str] = None,
 ) -> None:
-    """Stream rows to stdout/file — never materializes the whole CSV.
-    Span ``search.csv`` (counter ``rows_written``)."""
+    """Stream rows to stdout/file, ``_CSV_BLOCK_ROWS`` rows at a time.
+    Span ``search.csv`` (counters of ``_write_csv``)."""
     with span("search.csv"):
-        if filename is None:
-            _write_rows(sys.stdout, rows, columns)
-            sys.stdout.flush()
-        else:
-            with open(filename, "w", newline="") as f:
-                _write_rows(f, rows, columns)
+        _write_to(filename, columns, _columns_of_rows(rows, columns), len(rows))

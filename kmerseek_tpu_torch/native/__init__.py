@@ -3,8 +3,9 @@
 port's own copy of the source).
 
 The library provides the host pieces that kmerseek implements in Rust:
-the FASTA parser, the multithreaded CPU sketcher (``--engine native``)
-and a stable multithreaded u64 argsort (the host posting build).
+the FASTA parser, the multithreaded CPU sketcher (``--engine native``),
+a stable multithreaded u64 argsort (the host posting build) and the
+search CSV's body from typed columns (``format_csv``).
 
 It is compiled with the C++ compiler (``$CXX``, else ``g++``, ``c++``
 or ``clang++``) at first use into ``kmerseek_tpu_torch/_build/``. The
@@ -175,6 +176,16 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_int64),  # out order
         ctypes.c_int32,  # n_threads
     ]
+    lib.ks_format_csv.restype = ctypes.c_int64
+    lib.ks_format_csv.argtypes = [
+        ctypes.c_int64,  # n_rows
+        ctypes.c_int32,  # n_cols
+        ctypes.POINTER(ctypes.c_int32),  # kind of each column
+        ctypes.POINTER(ctypes.c_void_p),  # data of each column
+        ctypes.POINTER(ctypes.c_void_p),  # text offsets of each column (n_rows + 1), else null
+        ctypes.c_void_p,  # out
+        ctypes.c_int64,  # capacity of out
+    ]
 
 
 def available() -> bool:
@@ -286,3 +297,57 @@ def sketch_cpu_batch_throughput(
         ctypes.byref(total),
     )
     return secs, total.value
+
+
+# ks_format_csv's column kinds and the longest cell of each numeric kind
+_CSV_FLOAT64, _CSV_INT64, _CSV_TEXT = 0, 1, 2
+_CSV_CELL_MAX = {_CSV_FLOAT64: 24, _CSV_INT64: 20}
+
+
+def format_csv(columns, n_rows: int) -> str:
+    """The body of a CSV: ``n_rows`` lines, each row's cells joined by
+    ``,`` and ended by a newline. Each column is a float64 array (each
+    value as ``repr`` writes it), an int64 array (as ``str``), or a list
+    of ``str`` cells written as they are: quoting is the caller's."""
+    import numpy as np
+
+    lib = _require()
+    n_cols = len(columns)
+    kinds = (ctypes.c_int32 * n_cols)()
+    data = (ctypes.c_void_p * n_cols)()
+    offsets = (ctypes.c_void_p * n_cols)()
+    keep = []  # every buffer the call reads, alive until it returns
+    cap = n_rows * n_cols
+    for c, col in enumerate(columns):
+        if len(col) != n_rows:
+            raise ValueError(f"column {c} has {len(col)} cells, not {n_rows}")
+        if isinstance(col, np.ndarray):
+            if col.dtype not in (np.float64, np.int64):
+                raise TypeError(f"column {c} is {col.dtype}, not float64 or int64")
+            kind = _CSV_FLOAT64 if col.dtype == np.float64 else _CSV_INT64
+            arr = np.ascontiguousarray(col)
+            cap += n_rows * _CSV_CELL_MAX[kind]
+            data[c] = arr.ctypes.data
+            keep.append(arr)
+        else:
+            kind = _CSV_TEXT
+            joined = "".join(col)
+            if joined.isascii():
+                buf = joined.encode("ascii")
+                lens = np.fromiter(map(len, col), np.int64, n_rows)
+            else:
+                cells = [s.encode("utf-8", "surrogatepass") for s in col]
+                buf = b"".join(cells)
+                lens = np.fromiter(map(len, cells), np.int64, n_rows)
+            off = np.zeros(n_rows + 1, np.int64)
+            np.cumsum(lens, out=off[1:])
+            cap += len(buf)
+            data[c] = ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p)
+            offsets[c] = off.ctypes.data
+            keep += [buf, off]
+        kinds[c] = kind
+    out = np.empty(max(cap, 1), np.uint8)
+    n = lib.ks_format_csv(n_rows, n_cols, kinds, data, offsets, out.ctypes.data, len(out))
+    if n < 0:
+        raise RuntimeError("ks_format_csv: output bound exceeded")
+    return str(memoryview(out)[:n], "utf-8", "surrogatepass")

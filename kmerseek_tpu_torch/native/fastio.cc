@@ -10,13 +10,17 @@
 //     sort/dedup with abundances. It is the `--engine native` sketcher and
 //     a host oracle for the CUDA kernels.
 //   * A stable multithreaded argsort of u64 keys (the host posting build).
+//   * The body of a search CSV from typed columns: floats in the digits and
+//     layout of CPython's repr, integers, and text cells copied as given.
 //
 // Exposed as a plain C ABI consumed through ctypes.
 //
 // Built at first use by kmerseek_tpu_torch/native/__init__.py (g++).
 #include <algorithm>
 #include <atomic>
+#include <charconv>
 #include <chrono>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <string>
@@ -307,6 +311,133 @@ int32_t ks_argsort_u64(const uint64_t* keys, int64_t n, int64_t* out_order,
       out_order[i] = (int64_t)part[i].idx;
   });
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Search CSV body from typed columns
+// ---------------------------------------------------------------------------
+
+// Longest cell each numeric kind writes: "-2.2250738585072014e-308" and
+// "-9223372036854775808".
+static constexpr int64_t kFloatCellMax = 24;
+static constexpr int64_t kIntCellMax = 20;
+
+// `v` as CPython's repr(float) writes it: the shortest digits that read
+// back to `v` (std::to_chars), in exponent form when the decimal point
+// lies 4 or more places left of the first digit or more than 16 right of
+// it ("1e-05", "1.5e+16": signed exponent of at least two digits), else
+// in fixed form with ".0" on integral values; "-0.0", "inf", "-inf",
+// "nan". Returns the end of what it wrote (at most kFloatCellMax bytes).
+static char* put_repr_double_(char* p, double v) {
+  if (std::isnan(v)) {
+    std::memcpy(p, "nan", 3);
+    return p + 3;
+  }
+  if (std::signbit(v)) *p++ = '-';
+  if (std::isinf(v)) {
+    std::memcpy(p, "inf", 3);
+    return p + 3;
+  }
+  if (v == 0.0) {
+    std::memcpy(p, "0.0", 3);
+    return p + 3;
+  }
+  char sci[32];
+  const char* end =
+      std::to_chars(sci, sci + sizeof sci, std::fabs(v), std::chars_format::scientific).ptr;
+  // sci: d[.ddd]e(+|-)dd[d]
+  char digits[20];
+  int nd = 0;
+  const char* q = sci;
+  for (; *q != 'e'; ++q)
+    if (*q != '.') digits[nd++] = *q;
+  int exp10 = 0;
+  for (const char* e = q + 2; e < end; ++e) exp10 = exp10 * 10 + (*e - '0');
+  if (q[1] == '-') exp10 = -exp10;
+  const int decpt = exp10 + 1;  // value = 0.digits * 10^decpt
+  if (decpt <= -4 || decpt > 16) {
+    *p++ = digits[0];
+    if (nd > 1) {
+      *p++ = '.';
+      std::memcpy(p, digits + 1, nd - 1);
+      p += nd - 1;
+    }
+    *p++ = 'e';
+    *p++ = exp10 < 0 ? '-' : '+';
+    int a = exp10 < 0 ? -exp10 : exp10;
+    if (a >= 100) *p++ = (char)('0' + a / 100);
+    *p++ = (char)('0' + a / 10 % 10);
+    *p++ = (char)('0' + a % 10);
+  } else if (decpt <= 0) {
+    *p++ = '0';
+    *p++ = '.';
+    std::memset(p, '0', -decpt);
+    p += -decpt;
+    std::memcpy(p, digits, nd);
+    p += nd;
+  } else if (decpt >= nd) {
+    std::memcpy(p, digits, nd);
+    p += nd;
+    std::memset(p, '0', decpt - nd);
+    p += decpt - nd;
+    std::memcpy(p, ".0", 2);
+    p += 2;
+  } else {
+    std::memcpy(p, digits, decpt);
+    p += decpt;
+    *p++ = '.';
+    std::memcpy(p, digits + decpt, nd - decpt);
+    p += nd - decpt;
+  }
+  return p;
+}
+
+// Column kinds of ks_format_csv.
+enum : int32_t { KS_CSV_FLOAT64 = 0, KS_CSV_INT64 = 1, KS_CSV_TEXT = 2 };
+
+// Writes `n_rows` CSV lines into `out`: each row's cells joined by ',' and
+// ended by '\n'. Column c is kinds[c]: KS_CSV_FLOAT64 reads
+// ((const double*)data[c])[r], KS_CSV_INT64 ((const int64_t*)data[c])[r],
+// and KS_CSV_TEXT copies bytes offsets[c][r] to offsets[c][r + 1] of the
+// buffer data[c] as they are (quoting is the caller's). Returns the bytes
+// written, or -1 when `cap` is below the bound the columns need (nothing
+// is written then) or a kind is unknown.
+int64_t ks_format_csv(int64_t n_rows, int32_t n_cols, const int32_t* kinds,
+                      const void* const* data, const int64_t* const* offsets,
+                      char* out, int64_t cap) {
+  int64_t need = n_rows * (int64_t)n_cols;  // separators and line ends
+  for (int32_t c = 0; c < n_cols; c++) {
+    if (kinds[c] == KS_CSV_FLOAT64)
+      need += n_rows * kFloatCellMax;
+    else if (kinds[c] == KS_CSV_INT64)
+      need += n_rows * kIntCellMax;
+    else if (kinds[c] == KS_CSV_TEXT)
+      need += offsets[c][n_rows] - offsets[c][0];
+    else
+      return -1;
+  }
+  if (need > cap) return -1;
+  char* p = out;
+  for (int64_t r = 0; r < n_rows; r++) {
+    for (int32_t c = 0; c < n_cols; c++) {
+      if (c) *p++ = ',';
+      switch (kinds[c]) {
+        case KS_CSV_FLOAT64:
+          p = put_repr_double_(p, ((const double*)data[c])[r]);
+          break;
+        case KS_CSV_INT64:
+          p = std::to_chars(p, p + kIntCellMax, ((const int64_t*)data[c])[r]).ptr;
+          break;
+        default: {
+          const int64_t a = offsets[c][r], b = offsets[c][r + 1];
+          std::memcpy(p, (const char*)data[c] + a, b - a);
+          p += b - a;
+        }
+      }
+    }
+    *p++ = '\n';
+  }
+  return p - out;
 }
 
 }  // extern "C"

@@ -15,9 +15,11 @@ import time
 from collections import Counter
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
+from kmerseek_tpu_torch import native
 from kmerseek_tpu_torch.core.fasta import prefetch
 from kmerseek_tpu_torch.core.index import IndexConfig, ProteomeIndex
 from kmerseek_tpu_torch.core.search import MANYSEARCH_COLUMNS, manysearch, write_search_csv
@@ -208,7 +210,10 @@ def test_one_block_records_each_span_and_counts_its_rows(fastas, tmp_path):
     with open(out) as f:
         data_lines = len(list(csv.reader(f))) - 1
     assert data_lines == len(rows) > 0
-    assert spans["search.csv"][0].counts == {"rows_written": data_lines}
+    native_rows = data_lines if native.available() else 0
+    python_columns = 0 if native.available() else len(MANYSEARCH_COLUMNS)
+    assert spans["search.csv"][0].counts == {
+        "rows_written": data_lines, "csv.native_rows": native_rows, "csv.python_columns": python_columns}
     assert spans["search.columns"][0].counts == {"rows": data_lines}
     with open(qfa) as f:
         residues = sum(len(line.strip()) for line in f if not line.startswith(">"))
@@ -222,6 +227,42 @@ def test_one_block_records_each_span_and_counts_its_rows(fastas, tmp_path):
         assert spans[name][0].parent_id == many.span_id
     assert spans["search.cross_check"][0].parent_id == spans["search.columns"][0].span_id
     assert spans["search.cross_check"][0].trace_id == many.span_id
+
+
+def _csv_span(rows, columns, out):
+    """The one ``search.csv`` span that writing ``rows`` records, and
+    whether any span recorded meanwhile is its child."""
+    t = time.perf_counter()
+    write_search_csv(rows, columns, out)
+    recs = metrics.records(since=t)
+    (sp,) = [r for r in recs if r.name == "search.csv"]
+    return sp, any(r.parent_id == sp.span_id for r in recs)
+
+
+def test_csv_counters_native_rows_and_python_columns(fastas, tmp_path, monkeypatch):
+    """A block's rows go through the C++ library with no column formatted
+    a value at a time; a float32 column is one Python column; without the
+    library every column is, and no row is native. ``search.csv`` has no
+    child span on any of these paths."""
+    if not native.available():
+        pytest.skip("no C++ compiler: the native CSV formatter is not built")
+    qfa, tfa = fastas
+    rows = manysearch(ProteomeIndex.build(qfa, CFG, device="cpu"), ProteomeIndex.build(tfa, CFG, device="cpu"))
+    assert rows
+    sp, child = _csv_span(rows, MANYSEARCH_COLUMNS, str(tmp_path / "a.csv"))
+    assert sp.counts == {"rows_written": len(rows), "csv.native_rows": len(rows), "csv.python_columns": 0}
+    assert not child
+    as_f32 = [dict(r, jaccard=np.float32(r["jaccard"])) for r in rows]
+    sp, child = _csv_span(as_f32, MANYSEARCH_COLUMNS, str(tmp_path / "b.csv"))
+    assert sp.counts == {"rows_written": len(rows), "csv.native_rows": len(rows), "csv.python_columns": 1}
+    assert not child
+    monkeypatch.setattr(native, "available", lambda: False)
+    sp, child = _csv_span(rows, MANYSEARCH_COLUMNS, str(tmp_path / "c.csv"))
+    assert sp.counts == {"rows_written": len(rows), "csv.native_rows": 0,
+                         "csv.python_columns": len(MANYSEARCH_COLUMNS)}
+    assert not child
+    with open(tmp_path / "a.csv", "rb") as a, open(tmp_path / "c.csv", "rb") as c:
+        assert a.read() == c.read()
 
 
 def test_save_load_and_sig_zip_spans(fastas, tmp_path):
