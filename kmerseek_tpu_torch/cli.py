@@ -16,8 +16,6 @@ program's spans as ``kmerseek/<span>`` ranges, and log the span table
 
 from __future__ import annotations
 
-import sys
-
 import click
 
 from .core.entity import KmerseekIndex, KmerseekQuery
@@ -191,15 +189,13 @@ def _search(
         return
 
     # pandas is imported here: `index` and plain `search` never need it
-    from .core.stitch import stitch_results_streaming, stitched_to_csv
+    from .core.stitch import write_stitched
 
     # both sidecars stream through a name + hash-join filter, so memory
-    # stays bounded by the rows that can join
-    stitched, report = stitch_results_streaming(
-        rows, query.kmers_pq, target.kmers_pq, group_by_pair=stitch_per_query
+    # stays bounded by the rows that can join; the report goes to stderr
+    stitched, _counts = write_stitched(
+        rows, query.kmers_pq, target.kmers_pq, output, group_by_pair=stitch_per_query
     )
-    click.echo(report, err=True)
-    sys.stderr.flush()
     if annotate_domains:
         from .core.uniprot import get_domains
 
@@ -210,13 +206,6 @@ def _search(
             )
             for d in domains or ():
                 logger.info(f"Found: {d.name} in {d.start}-{d.end}")
-    data = stitched_to_csv(stitched)
-    if output is None:
-        sys.stdout.write(data)
-        sys.stdout.flush()
-    else:
-        with open(output, "w") as f:
-            f.write(data)
 
 
 if __name__ == "__main__":

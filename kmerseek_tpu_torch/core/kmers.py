@@ -11,6 +11,11 @@ The hash pass runs on the index's device: the window-hash kernel
 (``csrc/window_hashes.cu``) on a CUDA device, its plain version on the
 CPU. Only the kept ``(row, start, hash)`` triples come back to the host;
 the strings are numpy slicing on the host.
+
+Spans (``utils.metrics``): ``kmers.extract`` around a sidecar write
+(counter ``kmers.rows``), with children ``kmers.hash`` (the device pass,
+``nonzero`` and the two copies back, each a ``device.syncs``),
+``kmers.strings`` and ``kmers.write``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from ..ops.encoding import encode_bytes_np
 from ..ops.sketch import window_hashes
 from ..utils.device import resolve_device
+from ..utils.metrics import count, note_sync, span
 from .fasta import pack_batch
 
 KMERS_SCHEMA = pa.schema(
@@ -49,14 +55,18 @@ def _kept_windows(arr: np.ndarray, lens: np.ndarray, ksize, scaled, moltype, dev
     """Hash pass on ``device``: the kept windows' ``(rows, starts, hashes
     uint64)`` in row-major order (``torch.nonzero`` order = that of
     ``np.nonzero``)."""
-    hashes, keep = window_hashes(
-        torch.from_numpy(arr).to(device),
-        torch.from_numpy(lens).to(device),
-        k=ksize, scaled=scaled, moltype=moltype,
-    )
-    nz = torch.nonzero(keep)
-    h = hashes[nz[:, 0], nz[:, 1]]
-    nz, h = nz.cpu().numpy(), h.cpu().numpy()
+    with span("kmers.hash"):
+        hashes, keep = window_hashes(
+            torch.from_numpy(arr).to(device),
+            torch.from_numpy(lens).to(device),
+            k=ksize, scaled=scaled, moltype=moltype,
+        )
+        nz = torch.nonzero(keep)
+        h = hashes[nz[:, 0], nz[:, 1]]
+        note_sync(nz)
+        nz = nz.cpu().numpy()
+        note_sync(h)
+        h = h.cpu().numpy()
     return nz[:, 0], nz[:, 1], h.view(np.uint64)
 
 
@@ -85,35 +95,37 @@ def iter_kmer_batches(
         rows, starts, h64 = _kept_windows(arr, lens, ksize, scaled, moltype, device)
         if len(rows) == 0:
             continue
-        # window bytes come from sliding views over the padded byte grid
-        # and decode as fixed-width S<k> columns; no per-window Python
-        enc_arr = encode_bytes_np(arr, moltype)
-        win = sliding_window_view(arr, ksize, axis=1)
-        enc_win = sliding_window_view(enc_arr, ksize, axis=1)
-        kmers = (
-            np.ascontiguousarray(win[rows, starts])
-            .view(f"S{ksize}")
-            .ravel()
-            .astype(f"U{ksize}")
-        )
-        encs = (
-            np.ascontiguousarray(enc_win[rows, starts])
-            .view(f"S{ksize}")
-            .ravel()
-            .astype(f"U{ksize}")
-        )
-        name_col = np.asarray(chunk_names, dtype=object)[rows]
-        yield pa.Table.from_arrays(
-            [
-                pa.array(np.full(len(rows), sequence_file, object), pa.large_string()),
-                pa.array(name_col, pa.large_string()),
-                pa.array(kmers, pa.large_string()),
-                pa.array(h64, pa.uint64()),
-                pa.array(encs, pa.large_string()),
-                pa.array(starts.astype(np.uint32), pa.uint32()),
-            ],
-            schema=KMERS_SCHEMA,
-        )
+        with span("kmers.strings"):
+            # window bytes come from sliding views over the padded byte grid
+            # and decode as fixed-width S<k> columns; no per-window Python
+            enc_arr = encode_bytes_np(arr, moltype)
+            win = sliding_window_view(arr, ksize, axis=1)
+            enc_win = sliding_window_view(enc_arr, ksize, axis=1)
+            kmers = (
+                np.ascontiguousarray(win[rows, starts])
+                .view(f"S{ksize}")
+                .ravel()
+                .astype(f"U{ksize}")
+            )
+            encs = (
+                np.ascontiguousarray(enc_win[rows, starts])
+                .view(f"S{ksize}")
+                .ravel()
+                .astype(f"U{ksize}")
+            )
+            name_col = np.asarray(chunk_names, dtype=object)[rows]
+            table = pa.Table.from_arrays(
+                [
+                    pa.array(np.full(len(rows), sequence_file, object), pa.large_string()),
+                    pa.array(name_col, pa.large_string()),
+                    pa.array(kmers, pa.large_string()),
+                    pa.array(h64, pa.uint64()),
+                    pa.array(encs, pa.large_string()),
+                    pa.array(starts.astype(np.uint32), pa.uint32()),
+                ],
+                schema=KMERS_SCHEMA,
+            )
+        yield table
 
 
 def extract_kmer_table(
@@ -189,15 +201,20 @@ def write_kmer_table_for_index(
     group per ``KMERS_ROW_GROUP`` rows: peak memory is about one row
     group, not the table. Decodes identically to
     ``write_kmer_table(kmer_table_for_index(index), path)``."""
-    with pq.ParquetWriter(path, KMERS_SCHEMA) as writer:
+    def flush(writer, pending):
+        with span("kmers.write"):
+            writer.write_table(pa.concat_tables(pending), row_group_size=KMERS_ROW_GROUP)
+
+    with span("kmers.extract"), pq.ParquetWriter(path, KMERS_SCHEMA) as writer:
         pending: List[pa.Table] = []
         n_pending = 0
         for chunk in iter_kmer_batches(**_index_kw(index, sequence_file)):
+            count("kmers.rows", len(chunk))
             pending.append(chunk)
             n_pending += len(chunk)
             if n_pending >= KMERS_ROW_GROUP:
-                writer.write_table(pa.concat_tables(pending), row_group_size=KMERS_ROW_GROUP)
+                flush(writer, pending)
                 pending, n_pending = [], 0
         if pending:
-            writer.write_table(pa.concat_tables(pending), row_group_size=KMERS_ROW_GROUP)
+            flush(writer, pending)
     return path

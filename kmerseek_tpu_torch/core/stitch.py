@@ -23,13 +23,23 @@ Output: the 10-column stitched CSV (match_name, query_name,
 query_start, query_end, query, match_start, match_end, match, encoded,
 length) sorted by (query_start, query_end), plus the exact stderr
 report text pinned by kmerseek's tests/test_search.py:103-139.
+
+``write_stitched`` is the one entry that ``search --extract-kmers`` and
+a served block call: the streaming stitch, the report and the CSV.
+Spans (``utils.metrics``): ``stitch.write`` around it, with children
+``stitch.scan`` (one a sidecar; counters ``stitch.rows_scanned`` and
+``stitch.rows_kept``), ``stitch.join``, ``stitch.segments`` (counter
+``stitch.segments``) and ``stitch.csv``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import sys
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import pandas as pd
+
+from ..utils.metrics import count, span
 
 STITCH_COLUMNS = [
     "match_name",
@@ -215,25 +225,27 @@ def stitch_results(
 
     ``group_by_pair=True`` opts out of the reference's match_name-only
     grouping quirk (see ``_stitch_segments``)."""
-    results = pd.DataFrame(
-        [
-            {"match_name": r["match_name"], "query_name": r["query_name"]}
-            for r in search_rows
-        ]
-    )
-    kmers = join_query_target_kmers(query_kmers, target_kmers)
-    merged = results.merge(
-        kmers,
-        left_on=["match_name", "query_name"],
-        right_on=["sequence_name_match", "sequence_name_query"],
-        how="inner",
-    )
+    with span("stitch.join"):
+        # the columns named, so that a block without rows joins to none
+        results = pd.DataFrame(
+            [(r["match_name"], r["query_name"]) for r in search_rows],
+            columns=["match_name", "query_name"],
+        )
+        kmers = join_query_target_kmers(query_kmers, target_kmers)
+        merged = results.merge(
+            kmers,
+            left_on=["match_name", "query_name"],
+            right_on=["sequence_name_match", "sequence_name_query"],
+            how="inner",
+        )
     if merged.empty:
         return pd.DataFrame(columns=STITCH_COLUMNS), ""
-    stitched = pd.DataFrame(_stitch_segments(merged, group_by_pair)).sort_values(
-        ["query_start", "query_end"], kind="mergesort"
-    )
-    report = "\n".join(stitched["to_print"]) + "\n"
+    with span("stitch.segments"):
+        stitched = pd.DataFrame(_stitch_segments(merged, group_by_pair)).sort_values(
+            ["query_start", "query_end"], kind="mergesort"
+        )
+        count("stitch.segments", len(stitched))
+        report = "\n".join(stitched["to_print"]) + "\n"
     return stitched[STITCH_COLUMNS].reset_index(drop=True), report
 
 
@@ -242,7 +254,7 @@ def _scan_kmer_parquet(
     names: set,
     hash_filter=None,
     batch_rows: int = 1 << 16,
-) -> pd.DataFrame:
+) -> Tuple[pd.DataFrame, int]:
     """Stream a k-mer sidecar parquet and keep only rows that can
     survive the stitch joins: ``sequence_name ∈ names`` and (when
     given) ``hashval ∈ hash_filter`` (a SORTED uint64 array).
@@ -256,27 +268,33 @@ def _scan_kmer_parquet(
 
     Row order of the survivors is the file's row order, so downstream
     pandas merges see exactly the rows the eager path's merges would
-    keep, in the same order — output stays byte-identical."""
+    keep, in the same order — output stays byte-identical. Returns the
+    kept rows and the number of rows read."""
     import numpy as np
     import pyarrow.parquet as pq
 
-    pf = pq.ParquetFile(path)
-    kept = []
-    for batch in pf.iter_batches(batch_size=batch_rows):
-        name_col = batch.column("sequence_name").to_numpy(zero_copy_only=False)
-        mask = np.fromiter(
-            (n in names for n in name_col), count=len(name_col), dtype=bool
-        )
-        if hash_filter is not None and mask.any():
-            if len(hash_filter) == 0:
-                mask[:] = False
-            else:
-                hv = batch.column("hashval").to_numpy(zero_copy_only=False)
-                pos = np.searchsorted(hash_filter, hv)
-                pos[pos == len(hash_filter)] = 0
-                mask &= hash_filter[pos] == hv
-        if mask.any():
-            kept.append(batch.to_pandas().loc[mask])
+    with span("stitch.scan"):
+        pf = pq.ParquetFile(path)
+        kept, scanned = [], 0
+        for batch in pf.iter_batches(batch_size=batch_rows):
+            name_col = batch.column("sequence_name").to_numpy(zero_copy_only=False)
+            mask = np.fromiter(
+                (n in names for n in name_col), count=len(name_col), dtype=bool
+            )
+            if hash_filter is not None and mask.any():
+                if len(hash_filter) == 0:
+                    mask[:] = False
+                else:
+                    hv = batch.column("hashval").to_numpy(zero_copy_only=False)
+                    pos = np.searchsorted(hash_filter, hv)
+                    pos[pos == len(hash_filter)] = 0
+                    mask &= hash_filter[pos] == hv
+            n_kept = int(mask.sum())
+            scanned += len(name_col)
+            count("stitch.rows_scanned", len(name_col))
+            count("stitch.rows_kept", n_kept)
+            if n_kept:
+                kept.append(batch.to_pandas().loc[mask])
     if not kept:
         cols = [
             "sequence_file",
@@ -286,8 +304,8 @@ def _scan_kmer_parquet(
             "encoded",
             "start",
         ]
-        return pd.DataFrame(columns=cols)
-    return pd.concat(kept, ignore_index=True)
+        return pd.DataFrame(columns=cols), scanned
+    return pd.concat(kept, ignore_index=True), scanned
 
 
 def stitch_results_streaming(
@@ -306,16 +324,65 @@ def stitch_results_streaming(
     is O(query-side rows + true join rows), independent of the target
     sidecar size. Output is byte-identical to the eager path (pinned
     by tests/test_torch_stitch.py)."""
+    stitched, report, _counts = _stitch_streaming(
+        search_rows, query_kmers_pq, target_kmers_pq, group_by_pair, batch_rows
+    )
+    return stitched, report
+
+
+class StitchCounts(NamedTuple):
+    rows_scanned: int  # sidecar rows read, both sidecars
+    rows_kept: int  # of them, rows that can survive the joins
+    segments: int  # stitched rows
+
+
+def _stitch_streaming(search_rows, query_kmers_pq, target_kmers_pq, group_by_pair, batch_rows):
+    """:func:`stitch_results_streaming` with its ``StitchCounts``."""
     import numpy as np
 
     query_names = {r["query_name"] for r in search_rows}
     match_names = {r["match_name"] for r in search_rows}
-    q = _scan_kmer_parquet(query_kmers_pq, query_names, batch_rows=batch_rows)
+    q, q_scanned = _scan_kmer_parquet(query_kmers_pq, query_names, batch_rows=batch_rows)
     q_hashes = np.unique(q["hashval"].to_numpy(dtype=np.uint64, copy=False))
-    t = _scan_kmer_parquet(
+    t, t_scanned = _scan_kmer_parquet(
         target_kmers_pq, match_names, hash_filter=q_hashes, batch_rows=batch_rows
     )
-    return stitch_results(search_rows, q, t, group_by_pair=group_by_pair)
+    stitched, report = stitch_results(search_rows, q, t, group_by_pair=group_by_pair)
+    return stitched, report, StitchCounts(q_scanned + t_scanned, len(q) + len(t), len(stitched))
+
+
+def _write_text(text: str, path: Optional[str], stream) -> None:
+    """``text`` to the file ``path``, or to ``stream`` (then flushed)."""
+    if path is None:
+        stream.write(text)
+        stream.flush()
+    else:
+        with open(path, "w") as f:
+            f.write(text)
+
+
+def write_stitched(
+    search_rows: Sequence[Dict],
+    query_kmers_pq: str,
+    target_kmers_pq: str,
+    out: Optional[str] = None,
+    report_out: Optional[str] = None,
+    group_by_pair: bool = False,
+) -> Tuple[pd.DataFrame, StitchCounts]:
+    """The stitched tail of ``search --extract-kmers``: stitch the
+    manysearch rows over the two on-disk sidecars
+    (:func:`stitch_results_streaming`), write the report and a newline
+    to ``report_out`` (default: standard error), then the stitched CSV to
+    ``out`` (default: standard output). Returns the stitched frame and
+    its ``StitchCounts``."""
+    with span("stitch.write"):
+        stitched, report, counts = _stitch_streaming(
+            search_rows, query_kmers_pq, target_kmers_pq, group_by_pair, 1 << 16
+        )
+        _write_text(report + "\n", report_out, sys.stderr)
+        with span("stitch.csv"):
+            _write_text(stitched_to_csv(stitched), out, sys.stdout)
+    return stitched, counts
 
 
 def stitched_to_csv(stitched: pd.DataFrame) -> str:
