@@ -27,9 +27,10 @@ report text pinned by kmerseek's tests/test_search.py:103-139.
 ``write_stitched`` is the one entry that ``search --extract-kmers`` and
 a served block call: the streaming stitch, the report and the CSV.
 Spans (``utils.metrics``): ``stitch.write`` around it, with children
-``stitch.scan`` (one a sidecar; counters ``stitch.rows_scanned`` and
-``stitch.rows_kept``), ``stitch.join``, ``stitch.segments`` (counter
-``stitch.segments``) and ``stitch.csv``.
+``stitch.scan`` (one a sidecar; counters ``stitch.rows_scanned``,
+``stitch.hash_hits``, ``stitch.rows_kept`` and ``stitch.groups_decoded``),
+``stitch.join``, ``stitch.segments`` (counter ``stitch.segments``) and
+``stitch.csv``.
 """
 
 from __future__ import annotations
@@ -249,6 +250,25 @@ def stitch_results(
     return stitched[STITCH_COLUMNS].reset_index(drop=True), report
 
 
+# 2^20 one-byte flags (1 MiB): a row that is not a hit is a candidate with
+# odds len(hash_filter) / 2^20, under 0.5% up to 4,400 query hashes
+_PROBE_BITS = 20
+
+
+def _hash_hits(hashes, hash_filter, bitmap):
+    """Indices of ``hashes`` (uint64) that are in ``hash_filter`` (a
+    SORTED uint64 array), in order. ``bitmap`` flags the filter's top
+    ``_PROBE_BITS`` bits, so only the few candidates it lets through
+    are looked up exactly; all in uint64 order."""
+    import numpy as np
+
+    cand = np.flatnonzero(bitmap[hashes >> np.uint64(64 - _PROBE_BITS)])
+    got = hashes[cand]
+    pos = np.searchsorted(hash_filter, got)
+    pos[pos == len(hash_filter)] = 0
+    return cand[hash_filter[pos] == got]
+
+
 def _scan_kmer_parquet(
     path: str,
     names: set,
@@ -260,52 +280,92 @@ def _scan_kmer_parquet(
     given) ``hashval ∈ hash_filter`` (a SORTED uint64 array).
 
     This is the reference's LazyFrame predicate pushdown
-    (search.py:179-181, entity.py:61-71) done by hand: peak memory is
-    one parquet row group + the surviving rows, so a 10^8-row target
-    sidecar streams through instead of materializing. The hash probe is
-    a searchsorted membership test against the (small) query-side hash
-    set — the same sorted-array join the posting machinery uses.
+    (search.py:179-181, entity.py:61-71) done by hand, one parquet row
+    group at a time, so a 10^8-row target sidecar streams through instead
+    of materializing. In each row group the ``hashval`` column alone is
+    probed first; ``sequence_name`` is read (as a dictionary, its
+    distinct names tested once) only for the hash hits, and the other
+    columns only in a group where some row passed both. No Python object
+    is built for a row that cannot join. Without ``hash_filter`` (the
+    query side) every row goes to the name test. ``batch_rows`` is kept
+    for callers; the read unit is the file's row group.
 
-    Row order of the survivors is the file's row order, so downstream
+    The decode of a group's other columns, most of the scan's time, runs
+    in a second thread while this one probes the next group: at most one
+    group's string columns are decoded at a time, beside the next group's
+    hashes and names.
+
+    Row order of the survivors is the file's row order, and their
+    columns have the types a plain read of the file gives, so downstream
     pandas merges see exactly the rows the eager path's merges would
     keep, in the same order — output stays byte-identical. Returns the
-    kept rows and the number of rows read."""
+    kept rows and the number of rows read.
+
+    Counters on the ``stitch.scan`` span: ``stitch.rows_scanned`` (rows
+    whose hash, or name without a hash filter, was tested),
+    ``stitch.hash_hits`` (of them, rows that pass the hash probe; all
+    without a filter), ``stitch.rows_kept`` and ``stitch.groups_decoded``
+    (row groups whose other columns were read)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
     import pyarrow.parquet as pq
 
     with span("stitch.scan"):
-        pf = pq.ParquetFile(path)
-        kept, scanned = [], 0
-        for batch in pf.iter_batches(batch_size=batch_rows):
-            name_col = batch.column("sequence_name").to_numpy(zero_copy_only=False)
-            mask = np.fromiter(
-                (n in names for n in name_col), count=len(name_col), dtype=bool
-            )
-            if hash_filter is not None and mask.any():
-                if len(hash_filter) == 0:
-                    mask[:] = False
-                else:
-                    hv = batch.column("hashval").to_numpy(zero_copy_only=False)
-                    pos = np.searchsorted(hash_filter, hv)
-                    pos[pos == len(hash_filter)] = 0
-                    mask &= hash_filter[pos] == hv
-            n_kept = int(mask.sum())
-            scanned += len(name_col)
-            count("stitch.rows_scanned", len(name_col))
-            count("stitch.rows_kept", n_kept)
-            if n_kept:
-                kept.append(batch.to_pandas().loc[mask])
-    if not kept:
-        cols = [
-            "sequence_file",
-            "sequence_name",
-            "kmer",
-            "hashval",
-            "encoded",
-            "start",
-        ]
-        return pd.DataFrame(columns=cols), scanned
-    return pd.concat(kept, ignore_index=True), scanned
+        schema = pq.read_schema(path)
+        pf = pq.ParquetFile(path, read_dictionary=["sequence_name"])
+        decoder_pf = pq.ParquetFile(path)  # a ParquetFile is not shared between threads
+        wanted = pa.array(list(names), pa.large_string())
+        if hash_filter is not None:
+            hash_filter = np.asarray(hash_filter, dtype=np.uint64)
+            bitmap = np.zeros(1 << _PROBE_BITS, dtype=bool)
+            bitmap[hash_filter >> np.uint64(64 - _PROBE_BITS)] = True
+
+        def survivors(g, rows, read):
+            rest = [c for c in schema.names if c not in read]
+            read.update(zip(rest, decoder_pf.read_row_group(g, columns=rest).columns))
+            table = pa.table([read[c].take(rows) for c in schema.names], names=schema.names)
+            return table.cast(schema)
+
+        kept, scanned, decoding = [], 0, None
+        with ThreadPoolExecutor(1) as decoder:
+            for g in range(pf.num_row_groups):
+                n = pf.metadata.row_group(g).num_rows
+                read = {}  # column name -> the row group's whole column
+                rows = np.arange(n)
+                if hash_filter is not None:
+                    read["hashval"] = pf.read_row_group(g, columns=["hashval"]).column(0)
+                    rows = _hash_hits(read["hashval"].to_numpy(), hash_filter, bitmap)
+                scanned += n
+                count("stitch.rows_scanned", n)
+                count("stitch.hash_hits", len(rows))
+                if len(rows):
+                    read["sequence_name"] = pf.read_row_group(g, columns=["sequence_name"]).column(0)
+                    # a dictionary column: is_in looks each distinct name up once
+                    hit = pc.is_in(read["sequence_name"].take(rows), value_set=wanted)
+                    rows = rows[hit.to_numpy()]
+                count("stitch.rows_kept", len(rows))
+                count("stitch.groups_decoded", int(len(rows) > 0))
+                if len(rows):
+                    if decoding is not None:
+                        kept.append(decoding.result())
+                    decoding = decoder.submit(survivors, g, rows, read)
+            if decoding is not None:
+                kept.append(decoding.result())
+        if kept:
+            # numbered 0..n-1 even where a pandas-written sidecar stores an index
+            return pa.concat_tables(kept).to_pandas().reset_index(drop=True), scanned
+    cols = [
+        "sequence_file",
+        "sequence_name",
+        "kmer",
+        "hashval",
+        "encoded",
+        "start",
+    ]
+    return pd.DataFrame(columns=cols), scanned
 
 
 def stitch_results_streaming(

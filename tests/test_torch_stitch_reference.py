@@ -3,13 +3,15 @@ against the benchmark's plain reference (``kbench/reference/stitch.py``,
 numpy and Python, nothing of either package): the block's sidecar row
 for row, the stitched CSV and the report with per-pair and with
 kmerseek's match-name grouping, ``write_stitched`` against the CLI's
-former inline tail, the spans and counters of both layers, and planted
-faults that the comparison must read as not correct."""
+former inline tail, the spans and counters of both layers, planted
+faults that the comparison must read as not correct, and the sidecar
+scan against its former row-at-a-time version on synthetic sidecars."""
 
 import os
 
 import click
 import numpy as np
+import pandas as pd
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
@@ -158,6 +160,16 @@ def test_spans_nest_under_stitch_write_and_kmers_extract(tmp_path):
     assert scans[1].counts["stitch.rows_scanned"] == len(pq.read_table(paths["t.kmers.pq"]))
     assert scans[0].counts["stitch.rows_scanned"] == len(pq.read_table(paths["q.kmers.pq"]))
     assert sum(r.counts["stitch.rows_kept"] for r in scans) == counts.rows_kept
+    # the query side has no hash probe: every row is a hit
+    assert scans[0].counts["stitch.hash_hits"] == scans[0].counts["stitch.rows_scanned"]
+    q_table = pq.read_table(paths["q.kmers.pq"]).to_pandas()
+    q_hashes = q_table.loc[q_table["sequence_name"].isin({r["query_name"] for r in _rows}), "hashval"]
+    t_hashes = pq.read_table(paths["t.kmers.pq"]).column("hashval").to_numpy()
+    assert scans[1].counts["stitch.hash_hits"] == np.isin(t_hashes, q_hashes.to_numpy()).sum()
+    assert scans[1].counts["stitch.rows_kept"] <= scans[1].counts["stitch.hash_hits"]
+    # one row group a sidecar, with kept rows in each
+    assert pq.ParquetFile(paths["t.kmers.pq"]).num_row_groups == 1
+    assert [r.counts["stitch.groups_decoded"] for r in scans] == [1, 1]
     (seg,) = [r for r in recs if r.name == "stitch.segments"]
     assert seg.counts == {"stitch.segments": counts.segments}
     # on the CPU no host wait is on a CUDA tensor
@@ -199,3 +211,119 @@ def test_planted_fault_reads_not_correct(tmp_path, fault):
     _plant(fault, q, rows, paths, settings)
     out, _ = _checks(q, t, paths, settings, True)
     assert any(v > 0 for v in out.values()), out
+
+
+def _former_scan(path, names, hash_filter=None, batch_rows=1 << 16):
+    """The sidecar scan before the hash probe came first, kept as the
+    plain oracle of ``stitch._scan_kmer_parquet``: each batch's names as
+    Python strings tested against the set, then its hashes by
+    ``searchsorted``, then the whole batch to pandas and the mask."""
+    pf = pq.ParquetFile(path)
+    kept, scanned = [], 0
+    for batch in pf.iter_batches(batch_size=batch_rows):
+        name_col = batch.column("sequence_name").to_numpy(zero_copy_only=False)
+        mask = np.fromiter((n in names for n in name_col), count=len(name_col), dtype=bool)
+        if hash_filter is not None and mask.any():
+            if len(hash_filter) == 0:
+                mask[:] = False
+            else:
+                hv = batch.column("hashval").to_numpy(zero_copy_only=False)
+                pos = np.searchsorted(hash_filter, hv)
+                pos[pos == len(hash_filter)] = 0
+                mask &= hash_filter[pos] == hv
+        scanned += len(name_col)
+        if mask.any():
+            kept.append(batch.to_pandas().loc[mask])
+    if not kept:
+        return pd.DataFrame(columns=ref.SIDECAR_COLUMNS), scanned
+    return pd.concat(kept, ignore_index=True), scanned
+
+
+def _synthetic_sidecar(path, n_rows, group_rows, seed, high_hashes=False, string_type=pa.large_string(),
+                       use_dictionary=True):
+    """A sidecar of ``n_rows`` rows in row groups of ``group_rows``: 40
+    UniProt-style names in runs, as the rows of one sequence are, random
+    24-mers and uint64 hashes (all ≥ 2^63 with ``high_hashes``, the
+    largest planted). Returns the hashes and the 40 names."""
+    rng = np.random.default_rng(seed)
+    names = np.array([f"sp|P{i:05d}|T{i}_HUMAN target {i}" for i in range(40)], dtype=object)
+    seq = np.sort(rng.integers(0, 40, size=n_rows))
+    kmer = AA[rng.integers(0, 20, size=(n_rows, 24))].view("S24").ravel().astype(str)
+    low = 1 << 63 if high_hashes else 0
+    hashes = rng.integers(low, 1 << 64, size=n_rows, dtype=np.uint64, endpoint=False)
+    if high_hashes:
+        hashes[: min(n_rows, 3)] = [(1 << 64) - 1, 1 << 63, (1 << 64) - 2][: min(n_rows, 3)]
+    starts = np.arange(n_rows, dtype=np.uint32) % 997
+    schema = pa.schema([(c, string_type if t == pa.large_string() else t) for c, t in
+                        zip(kmers.KMERS_SCHEMA.names, kmers.KMERS_SCHEMA.types)])
+    table = pa.Table.from_arrays(
+        [pa.array(np.full(n_rows, "/data/t.fa", dtype=object), string_type), pa.array(names[seq], string_type),
+         pa.array(kmer, string_type), pa.array(hashes, pa.uint64()), pa.array(np.char.lower(kmer), string_type),
+         pa.array(starts, pa.uint32())], schema=schema)
+    pq.write_table(table, path, row_group_size=group_rows, use_dictionary=use_dictionary)
+    return hashes, names
+
+
+def _filter_case(case, hashes, names, group_rows, rng):
+    """(names, hash_filter) of one scan case."""
+    some_names = set(names[::2].tolist())
+    drawn = hashes[rng.choice(len(hashes), size=min(40, len(hashes)), replace=False)]
+    absent = rng.integers(0, 1 << 64, size=10, dtype=np.uint64, endpoint=False)
+    if case == "query side":
+        return some_names, None
+    if case == "empty hash filter":
+        return set(names.tolist()), np.zeros(0, dtype=np.uint64)
+    if case == "no matching name":
+        return {"sp|Q99999|NONE_HUMAN"}, np.unique(drawn)
+    if case == "no survivor":
+        return set(names.tolist()), np.unique(np.setdiff1d(absent, hashes))
+    if case == "one group survives":
+        return set(names.tolist()), np.unique(hashes[3 * group_rows + 5: 3 * group_rows + 25])
+    return some_names, np.unique(np.concatenate([drawn, hashes[:3], absent]))
+
+
+SCAN_CASES = {  # id: (rows, row group rows, batch_rows, sidecar options)
+    "one row group": (700, 1 << 20, 1 << 16, {}),
+    "64-row groups": (1000, 64, 64, {}),
+    "a 2^18-row group": ((1 << 18) + 300, 1 << 18, 1 << 16, {}),
+    "hashes >= 2^63": (900, 64, 64, {"high_hashes": True}),
+    "empty hash filter": (500, 64, 64, {}),
+    "no matching name": (500, 64, 64, {}),
+    "one group survives": (1000, 64, 64, {}),
+    "no survivor": (500, 64, 64, {}),
+    "no dictionary encoding": (1000, 64, 64, {"use_dictionary": False}),
+    "string columns": (1000, 64, 64, {"string_type": pa.string()}),
+    "query side": (1000, 64, 64, {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_equals_the_former_scan(tmp_path, case):
+    n_rows, group_rows, batch_rows, opts = SCAN_CASES[case]
+    path = str(tmp_path / "s.kmers.pq")
+    seed = 11 + list(SCAN_CASES).index(case)
+    hashes, names = _synthetic_sidecar(path, n_rows, group_rows, seed, **opts)
+    want_names, hash_filter = _filter_case(case, hashes, names, group_rows, np.random.default_rng(seed))
+    want, want_scanned = _former_scan(path, want_names, hash_filter, batch_rows)
+    since = metrics.records()[-1].t1 if metrics.records() else 0.0
+    got, scanned = stitch._scan_kmer_parquet(path, want_names, hash_filter, batch_rows)
+    (rec,) = [r for r in metrics.records(since=since) if r.name == "stitch.scan"]
+    assert got.equals(want) and list(got.dtypes) == list(want.dtypes) and list(got.columns) == list(want.columns)
+    assert scanned == want_scanned == n_rows
+    # the counters, each from the file's whole table
+    table = pq.read_table(path).to_pandas()
+    in_hashes = np.ones(n_rows, bool) if hash_filter is None else np.isin(hashes, hash_filter)
+    kept_rows = np.flatnonzero(in_hashes & table["sequence_name"].isin(want_names).to_numpy())
+    assert rec.counts == {"stitch.rows_scanned": n_rows, "stitch.hash_hits": in_hashes.sum(),
+                          "stitch.rows_kept": len(want), "stitch.groups_decoded": len(set(kept_rows // group_rows))}
+    assert rec.counts["stitch.hash_hits"] <= rec.counts["stitch.rows_scanned"] and len(kept_rows) == len(want)
+    if case in ("empty hash filter", "no matching name", "no survivor"):
+        assert len(want) == 0 and rec.counts["stitch.groups_decoded"] == 0
+    else:
+        assert len(want) > 0
+    if case == "one group survives":
+        assert rec.counts["stitch.groups_decoded"] == 1
+    if case == "no matching name":
+        assert rec.counts["stitch.hash_hits"] > 0
+    if case == "hashes >= 2^63":  # the first target's rows, 2^64 - 1 and 2^63 among them
+        assert want["hashval"].min() >= 1 << 63 and (1 << 64) - 1 in set(want["hashval"].tolist())
