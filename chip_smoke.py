@@ -1065,8 +1065,8 @@ def path_c_phase(c: Corpus, smi: str) -> dict:
     if n_rows != n_search_rows or n_rows <= 0:
         raise SystemExit(f"multisearch wrote {n_rows} rows, the main path's search {n_search_rows}")
 
-    # the column-native CSV writer against the row writer, on the
-    # manysearch columns of the main path's pair of indexes
+    # the column-native CSV writer against the writer over plain row
+    # dicts, on the manysearch columns of the main path's pair of indexes
     query = search_mod._as_index(qsig, device="cuda")
     target = ProteomeIndex.load(f"{tsig}.ksx", device="cuda")
     cols = search_mod.manysearch_columns(query, target)
@@ -1075,7 +1075,7 @@ def path_c_phase(c: Corpus, smi: str) -> dict:
     search_mod.write_search_csv_columns(cols, by_cols)
     t_cols = time.perf_counter() - t0
     t0 = time.perf_counter()
-    search_mod.write_search_csv(search_mod._rows_from_columns(cols), search_mod.MANYSEARCH_COLUMNS, by_rows)
+    search_mod.write_search_csv(list(search_mod.SearchRows(cols)), search_mod.MANYSEARCH_COLUMNS, by_rows)
     t_rows = time.perf_counter() - t0
     if not (_read_bytes(by_cols) == _read_bytes(by_rows) == _read_bytes(c.search_csv)):
         raise SystemExit("write_search_csv_columns, write_search_csv and the main path's search CSV differ")

@@ -3,11 +3,17 @@
 
 The intersection is a vectorized host join through the target's
 inverted postings; the columns are assembled on host in f64,
-byte-for-byte as the JAX package writes them. The join is cross-checked
-against the device's sparse hit-list engine (``ops.sparse_search``) on
-the index's device (``_validate_with_device``); the dense ``(Q, T)``
-engine (``_device_pair_stats`` over ``ops.inverted.inverted_search``)
-is the oracle that tests and sharded search compare against.
+byte-for-byte as the JAX package writes them. Every join is
+cross-checked against the device's sparse hit-list engine
+(``ops.sparse_search``) on the index's device (``_validate_with_device``);
+the dense ``(Q, T)`` engine (``_device_pair_stats`` over
+``ops.inverted.inverted_search``) is the oracle that tests and sharded
+search compare against.
+
+A result has one form: its columns ({column: values}, in column order).
+``manysearch`` / ``multisearch`` return them as ``SearchRows``, a
+sequence of row dicts built only when read; ``result_columns`` is the
+one way back to columns, for the CSV writer and the stitch.
 
 Column contracts (exact):
 
@@ -34,15 +40,14 @@ their device stages on the CUDA device unless ``device="cpu"`` is given.
 
 from __future__ import annotations
 
-import gc
+import collections.abc
 import io
 import math
 import operator
-import os
 import sys
 import weakref
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -95,6 +100,53 @@ MULTISEARCH_COLUMNS = [
     "containment_adjusted_log10",
     "tf_idf_score",
 ]
+
+
+class SearchRows(collections.abc.Sequence):
+    """A search result as a sequence of row dicts, backed by its columns
+    (``manysearch_columns`` / ``multisearch_columns``'s {column: values},
+    in column order) and holding nothing else.
+
+    ``rows[i]`` builds that row's dict: the columns' keys in order, numpy
+    values as the Python scalars ``.tolist()`` gives. Iteration builds
+    one dict a row as it goes; a slice is a list of dicts, as a list's
+    slice is. Equal to any sequence of dicts with the same rows."""
+
+    __slots__ = ("columns",)
+    __hash__ = None
+
+    def __init__(self, columns: Dict[str, Sequence]):
+        self.columns = columns
+
+    def __len__(self) -> int:
+        return len(next(iter(self.columns.values()), ()))
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        return {k: v[i].item() if isinstance(v, np.ndarray) else v[i] for k, v in self.columns.items()}
+
+    def __iter__(self):
+        vals = [v.tolist() if isinstance(v, np.ndarray) else v for v in self.columns.values()]
+        return (dict(zip(self.columns, row)) for row in zip(*vals))
+
+    def __eq__(self, other):
+        if not isinstance(other, collections.abc.Sequence) or isinstance(other, str):
+            return NotImplemented
+        return len(self) == len(other) and all(map(operator.eq, self, other))
+
+
+def result_columns(rows: Sequence[Dict], names: Sequence[str]) -> list:
+    """The columns ``names`` of a search result, one sequence of values
+    each: a ``SearchRows``'s own columns as they are, any other sequence
+    of row dicts transposed once."""
+    if not rows:
+        return [[] for _ in names]
+    if isinstance(rows, SearchRows):
+        return [rows.columns[c] for c in names]
+    if len(names) == 1:
+        return [[r[names[0]] for r in rows]]
+    return list(zip(*map(operator.itemgetter(*names), rows)))
 
 
 def _device_pair_stats(query: ProteomeIndex, target: ProteomeIndex):
@@ -325,47 +377,14 @@ def _host_join(query: ProteomeIndex, target: ProteomeIndex, inner: str) -> _Join
         )
 
 
-# per-(query, target) validated-block counters (weak-keyed: retired
-# corpora must not be kept alive by a bookkeeping cache)
-_VALIDATE_COUNTS: "OrderedDict[tuple, tuple]" = OrderedDict()
-_VALIDATE_SLOTS = 64
-# full cross-check on a pair's first blocks, then every Nth
-_VALIDATE_WARMUP = 2
-_VALIDATE_EVERY = 16
-
-
-def _validation_due(query, target) -> bool:
-    key = (id(query.mins), id(target.mins))
-    ent = _VALIDATE_COUNTS.get(key)
-    if ent is None or ent[0]() is not query.mins or ent[1]() is not target.mins:
-        n = 0
-    else:
-        n = ent[2]
-    _VALIDATE_COUNTS[key] = (
-        weakref.ref(query.mins), weakref.ref(target.mins), n + 1,
-    )
-    _VALIDATE_COUNTS.move_to_end(key)
-    while len(_VALIDATE_COUNTS) > _VALIDATE_SLOTS:
-        _VALIDATE_COUNTS.popitem(last=False)
-    return n < _VALIDATE_WARMUP or (n % _VALIDATE_EVERY) == 0
-
-
 def _validate_with_device(query, target, js: _JoinSegments, weighted, sample: int = 64):
     """Cross-check the host join against the device's sparse hit-list
-    engine (``ops.sparse_search``) on ``target.device``.
+    engine (``ops.sparse_search``) on ``target.device``, on every call:
+    one ``search.cross_check`` span.
 
     The hit list is exactly the host join's segment list, so the
     structural check is full (every pair's (q, t, count)); weighted sums
-    are compared on a seeded sample. Raises on disagreement.
-
-    Amortized: a (query, target) pair's first two blocks and every 16th
-    after. ``KMERSEEK_SEARCH_VALIDATE``: ``0`` never, ``always`` every
-    call. Each run is one ``search.cross_check`` span."""
-    policy = os.environ.get("KMERSEEK_SEARCH_VALIDATE", "")
-    if policy == "0":
-        return
-    if policy != "always" and not _validation_due(query, target):
-        return
+    are compared on a seeded sample. Raises on disagreement."""
     with span("search.cross_check"):
         _cross_check(query, target, js, weighted, sample)
 
@@ -413,13 +432,13 @@ def manysearch(
     query: ProteomeIndex,
     target: ProteomeIndex,
     threshold: float = 0.0,
-) -> List[Dict]:
+) -> SearchRows:
     """All query × target rows with ≥1 shared hash (threshold 0 default,
-    matching the CLI's 'show all matches' behavior). Span
-    ``search.manysearch`` around ``manysearch_columns``'s spans and
-    ``search.row_dicts``."""
+    matching the CLI's 'show all matches' behavior), as ``SearchRows``
+    over ``manysearch_columns``. Span ``search.manysearch`` around its
+    spans."""
     with span("search.manysearch"):
-        return _rows_from_columns(manysearch_columns(query, target, threshold))
+        return SearchRows(manysearch_columns(query, target, threshold))
 
 
 def manysearch_columns(
@@ -427,9 +446,8 @@ def manysearch_columns(
     target: ProteomeIndex,
     threshold: float = 0.0,
 ) -> Dict[str, list]:
-    """Column-native manysearch: {column: list} in MANYSEARCH_COLUMNS
-    order, bit-identical values to the dict rows; no per-row dict
-    construction, and ``write_search_csv_columns`` formats per column.
+    """Column-native manysearch: {column: values} in MANYSEARCH_COLUMNS
+    order (numeric columns as numpy arrays, text columns as lists).
     Spans ``search.join`` and ``search.columns`` (the per-target sums and
     the assembly, with ``search.cross_check`` inside; counter ``rows``)."""
     if (query.config.ksize, query.config.scaled, query.config.moltype) != (
@@ -557,12 +575,11 @@ def multisearch(
     target: ProteomeIndex,
     threshold: float = 0.0,
     estimate_prob_overlap: bool = True,
-) -> List[Dict]:
+) -> SearchRows:
     """Pairwise scoring with database-frequency statistics (the
-    ``do_multisearch`` variant)."""
-    return _rows_from_columns(
-        multisearch_columns(query, target, threshold, estimate_prob_overlap)
-    )
+    ``do_multisearch`` variant), as ``SearchRows`` over
+    ``multisearch_columns``."""
+    return SearchRows(multisearch_columns(query, target, threshold, estimate_prob_overlap))
 
 
 def multisearch_columns(
@@ -754,7 +771,7 @@ def do_manysearch(
     t = _as_index(target, ksize, scaled, moltype, device)
     cols = manysearch_columns(q, t, threshold=0.0)
     _write_output(cols, output)
-    return _rows_from_columns(cols)
+    return SearchRows(cols)
 
 
 def do_multisearch(
@@ -769,7 +786,7 @@ def do_multisearch(
     t = _as_index(target, ksize, scaled, moltype, device)
     cols = multisearch_columns(q, t, threshold=0.0, estimate_prob_overlap=True)
     _write_output(cols, output)
-    return _rows_from_columns(cols)
+    return SearchRows(cols)
 
 
 def _check_requested_params(index: ProteomeIndex, ksize, scaled, moltype):
@@ -782,27 +799,6 @@ def _check_requested_params(index: ProteomeIndex, ksize, scaled, moltype):
         raise ValueError(
             f"requested moltype {moltype}, archive has {got.moltype}"
         )
-
-
-def _rows_from_columns(cols: Dict[str, list]) -> List[Dict]:
-    """{column: list} → list of per-row dicts (same key order).
-
-    GC is paused for the bulk build: creating ~rows×cols container
-    objects in one burst otherwise triggers repeated full generational
-    collections. Span ``search.row_dicts``."""
-    with span("search.row_dicts"):
-        keys = list(cols.keys())
-        # numpy-backed numeric columns → plain Python scalars first
-        vals = [
-            v.tolist() if isinstance(v, np.ndarray) else v for v in cols.values()
-        ]
-        gc_was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            return [dict(zip(keys, row)) for row in zip(*vals)]
-        finally:
-            if gc_was_enabled:
-                gc.enable()
 
 
 def _format_value(v) -> str:
@@ -920,15 +916,10 @@ def _write_to(filename: Optional[str], columns: Sequence[str], values: Sequence,
 
 
 def write_search_csv_columns(
-    cols: Dict[str, list], filename: Optional[str] = None
+    cols: Dict[str, Sequence], filename: Optional[str] = None
 ) -> None:
-    """Stream a column-native result ({column: list}) as CSV: numpy
-    columns go to the formatter as they are, with no per-row dicts.
-    Byte-identical to ``write_search_csv``. Span ``search.csv``
-    (counters of ``_write_csv``)."""
-    with span("search.csv"):
-        values = list(cols.values())
-        _write_to(filename, list(cols.keys()), values, len(values[0]) if values else 0)
+    """``write_search_csv`` of a column-native result ({column: values})."""
+    write_search_csv(SearchRows(cols), list(cols), filename)
 
 
 def _write_output(cols: Dict[str, list], output: Optional[str]) -> None:
@@ -949,20 +940,10 @@ def write_search_parquet(cols: Dict[str, list], filename: str) -> None:
     pq.write_table(pa.table({k: pa.array(v) for k, v in cols.items()}), filename)
 
 
-def _columns_of_rows(rows: Sequence[Dict], columns: Sequence[str]) -> list:
-    """Row dicts → one tuple of values per column."""
-    if len(columns) == 1 or not rows:
-        return [[r[c] for r in rows] for c in columns]
-    return list(zip(*map(operator.itemgetter(*columns), rows)))
-
-
-def _write_rows(fh, rows: Sequence[Dict], columns: Sequence[str]) -> None:
-    _write_csv(fh, columns, _columns_of_rows(rows, columns), len(rows))
-
-
 def rows_to_csv(rows: Sequence[Dict], columns: Sequence[str]) -> str:
+    """``write_search_csv``'s bytes as a string."""
     buf = io.StringIO()
-    _write_rows(buf, rows, columns)
+    _write_csv(buf, columns, result_columns(rows, columns), len(rows))
     return buf.getvalue()
 
 
@@ -971,7 +952,8 @@ def write_search_csv(
     columns: Sequence[str],
     filename: Optional[str] = None,
 ) -> None:
-    """Stream rows to stdout/file, ``_CSV_BLOCK_ROWS`` rows at a time.
-    Span ``search.csv`` (counters of ``_write_csv``)."""
+    """A search result (``SearchRows`` or any sequence of row dicts) as
+    CSV, the columns ``columns`` in that order, to ``filename`` or
+    stdout. Span ``search.csv`` (counters of ``_write_csv``)."""
     with span("search.csv"):
-        _write_to(filename, columns, _columns_of_rows(rows, columns), len(rows))
+        _write_to(filename, columns, result_columns(rows, columns), len(rows))

@@ -25,7 +25,10 @@ length) sorted by (query_start, query_end), plus the exact stderr
 report text pinned by kmerseek's tests/test_search.py:103-139.
 
 ``write_stitched`` is the one entry that ``search --extract-kmers`` and
-a served block call: the streaming stitch, the report and the CSV.
+a served block call: the streaming stitch, the report and the CSV. The
+search result comes in as ``search.SearchRows`` (or any sequence of row
+dicts), read through ``search.result_columns``; the CSV goes through the
+search CSV writer (``search._write_csv``).
 Spans (``utils.metrics``): ``stitch.write`` around it, with children
 ``stitch.scan`` (one a sidecar; counters ``stitch.rows_scanned``,
 ``stitch.hash_hits``, ``stitch.rows_kept`` and ``stitch.groups_decoded``),
@@ -35,12 +38,14 @@ Spans (``utils.metrics``): ``stitch.write`` around it, with children
 
 from __future__ import annotations
 
+import io
 import sys
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import pandas as pd
 
 from ..utils.metrics import count, span
+from .search import _write_csv, result_columns
 
 STITCH_COLUMNS = [
     "match_name",
@@ -227,11 +232,9 @@ def stitch_results(
     ``group_by_pair=True`` opts out of the reference's match_name-only
     grouping quirk (see ``_stitch_segments``)."""
     with span("stitch.join"):
-        # the columns named, so that a block without rows joins to none
-        results = pd.DataFrame(
-            [(r["match_name"], r["query_name"]) for r in search_rows],
-            columns=["match_name", "query_name"],
-        )
+        names = ["match_name", "query_name"]
+        # text columns, as pandas infers them, also for a block without rows
+        results = pd.DataFrame(dict(zip(names, result_columns(search_rows, names))), dtype=str)
         kmers = join_query_target_kmers(query_kmers, target_kmers)
         merged = results.merge(
             kmers,
@@ -400,12 +403,11 @@ def _stitch_streaming(search_rows, query_kmers_pq, target_kmers_pq, group_by_pai
     """:func:`stitch_results_streaming` with its ``StitchCounts``."""
     import numpy as np
 
-    query_names = {r["query_name"] for r in search_rows}
-    match_names = {r["match_name"] for r in search_rows}
-    q, q_scanned = _scan_kmer_parquet(query_kmers_pq, query_names, batch_rows=batch_rows)
+    match_names, query_names = result_columns(search_rows, ["match_name", "query_name"])
+    q, q_scanned = _scan_kmer_parquet(query_kmers_pq, set(query_names), batch_rows=batch_rows)
     q_hashes = np.unique(q["hashval"].to_numpy(dtype=np.uint64, copy=False))
     t, t_scanned = _scan_kmer_parquet(
-        target_kmers_pq, match_names, hash_filter=q_hashes, batch_rows=batch_rows
+        target_kmers_pq, set(match_names), hash_filter=q_hashes, batch_rows=batch_rows
     )
     stitched, report = stitch_results(search_rows, q, t, group_by_pair=group_by_pair)
     return stitched, report, StitchCounts(q_scanned + t_scanned, len(q) + len(t), len(stitched))
@@ -446,12 +448,8 @@ def write_stitched(
 
 
 def stitched_to_csv(stitched: pd.DataFrame) -> str:
-    """10-column CSV, reference column order (search.py:249-263)."""
-    import csv as _csv
-    import io
-
+    """10-column CSV, reference column order (search.py:249-263), through
+    the search CSV writer."""
     buf = io.StringIO()
-    w = _csv.writer(buf, lineterminator="\n")
-    w.writerow(STITCH_COLUMNS)
-    w.writerows(stitched[STITCH_COLUMNS].itertuples(index=False, name=None))
+    _write_csv(buf, STITCH_COLUMNS, [stitched[c].to_numpy() for c in STITCH_COLUMNS], len(stitched))
     return buf.getvalue()

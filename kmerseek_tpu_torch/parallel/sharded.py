@@ -461,7 +461,7 @@ def _check_params(query, sharded: ShardedProteomeIndex) -> None:
 def _local_tuples(query, sharded: ShardedProteomeIndex):
     """This shard's co-occurrence tuples + the local join's device
     cross-check (each process validates its own hash range against the
-    sparse device engine — amortized by the usual policy)."""
+    sparse device engine, on every call)."""
     from ..core.search import (
         _join_tuples,
         _segments_from_tuples,

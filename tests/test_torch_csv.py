@@ -4,7 +4,7 @@ against ``str``, then the writer's bytes, through the library and through
 the Python fallback (``native.available`` patched to False, as on a host
 without a C++ compiler), against the JAX package's ``rows_to_csv`` /
 ``_write_rows`` (``csv.writer`` over each formatted cell), for a string,
-a file and stdout."""
+a file and stdout, from row dicts and from ``SearchRows``."""
 
 import contextlib
 import io
@@ -205,9 +205,7 @@ def test_writer_bytes_match_jax(name, to, path, request, tmp_path):
     expect = jsearch.rows_to_csv(rows, columns)
     if to == "string":
         got = tsearch.rows_to_csv(rows, columns)
-        fh = io.StringIO()
-        tsearch._write_rows(fh, rows, columns)
-        assert fh.getvalue() == got
+        assert tsearch.rows_to_csv(tsearch.SearchRows({c: [r[c] for r in rows] for c in columns}), columns) == got
     elif to == "file":
         out, ref = str(tmp_path / "p.csv"), str(tmp_path / "j.csv")
         tsearch.write_search_csv(rows, columns, out)
@@ -252,7 +250,8 @@ def test_column_writer_bytes_match_jax(name, to, path, request, tmp_path):
 
 def test_numpy_columns_of_other_dtypes(path):
     """float32 and unsigned columns as numpy arrays write what their
-    ``.tolist()`` rows write (a uint64 beyond int64 included)."""
+    ``.tolist()`` rows write (a uint64 beyond int64 included): as
+    columns, as ``SearchRows`` and as the list of its row dicts."""
     cols = {
         "f32": np.array([0.1, 1e-5, 3e38], np.float32),
         "u64": np.array([0, 2**63 + 5, 7], np.uint64),
@@ -260,5 +259,10 @@ def test_numpy_columns_of_other_dtypes(path):
         "i16": np.array([-3, 0, 3], np.int16),
         "b": np.array([True, False, True]),
     }
-    rows = tsearch._rows_from_columns(cols)
-    assert _stdout_of(tsearch.write_search_csv_columns, cols) == jsearch.rows_to_csv(rows, list(cols))
+    rows = tsearch.SearchRows(cols)
+    assert list(rows) == jsearch._rows_from_columns(cols)
+    assert [type(v) for v in rows[1].values()] == [float, int, int, int, bool]
+    want = jsearch.rows_to_csv(jsearch._rows_from_columns(cols), list(cols))
+    assert _stdout_of(tsearch.write_search_csv_columns, cols) == want
+    assert _stdout_of(tsearch.write_search_csv, rows, list(cols)) == want
+    assert tsearch.rows_to_csv(rows, list(cols)) == tsearch.rows_to_csv(list(rows), list(cols)) == want

@@ -32,7 +32,7 @@ CFG = IndexConfig(16, 5, "hp")
 BLOCK_SPANS = {
     "index.build": 1, "index.read": 2, "fasta.read": 2, "index.validate": 1,
     "index.sketch_device": 1, "index.finalize": 2, "search.manysearch": 1, "search.join": 1,
-    "search.columns": 1, "search.cross_check": 1, "search.row_dicts": 1, "search.csv": 1,
+    "search.columns": 1, "search.cross_check": 1, "search.csv": 1,
 }
 
 
@@ -223,7 +223,7 @@ def test_one_block_records_each_span_and_counts_its_rows(fastas, tmp_path):
     build, many = spans["index.build"][0], spans["search.manysearch"][0]
     for name in ("index.read", "index.validate", "index.sketch_device", "index.finalize", "fasta.read"):
         assert all(r.parent_id == build.span_id and r.trace_id == build.span_id for r in spans[name])
-    for name in ("search.join", "search.columns", "search.row_dicts"):
+    for name in ("search.join", "search.columns"):
         assert spans[name][0].parent_id == many.span_id
     assert spans["search.cross_check"][0].parent_id == spans["search.columns"][0].span_id
     assert spans["search.cross_check"][0].trace_id == many.span_id

@@ -97,8 +97,7 @@ def _assert_columns_equal(got, want):
         ({"threshold": 0.2, "estimate_prob_overlap": False}, 11),
     ],
 )
-def test_multisearch_columns_match_jax(pair, kw, n_cols, monkeypatch):
-    monkeypatch.setenv("KMERSEEK_SEARCH_VALIDATE", "always")
+def test_multisearch_columns_match_jax(pair, kw, n_cols):
     runs = cross_checks()
     got = tsearch.multisearch_columns(pair.pq, pair.pt, **kw)
     assert cross_checks() == runs + 1
@@ -235,8 +234,38 @@ def test_column_writer_matches_row_writer_and_jax(pair, search, to, tmp_path):
             _csv_of(jsearch.write_search_csv_columns, jcols),
         ]
     assert got[0] == got[1] == got[2] == tsearch.rows_to_csv(rows, columns)
+    assert tsearch.rows_to_csv(list(rows), columns) == got[0]
     # names with a comma and a quote are quoted, quotes doubled
     assert '"sp|P00004|T4 protein 4, ""isoform"" 1"' in got[0] and '"q0, planted"' in got[0]
+
+
+@pytest.mark.parametrize("search", ["manysearch", "multisearch"])
+@pytest.mark.parametrize("threshold", [0.0, 0.2])
+def test_search_rows_are_the_row_dicts_of_their_columns(pair, search, threshold):
+    """``manysearch`` / ``multisearch`` return ``SearchRows``: read as a
+    list, the row dicts that the JAX package's ``_rows_from_columns``
+    builds from the same columns, with the same keys in the same order,
+    values and Python types; indexing, slicing and ``==`` act as on that
+    list."""
+    cols = getattr(tsearch, f"{search}_columns")(pair.pq, pair.pt, threshold=threshold)
+    rows = getattr(tsearch, search)(pair.pq, pair.pt, threshold=threshold)
+    want = jsearch._rows_from_columns(cols)
+    assert isinstance(rows, tsearch.SearchRows) and len(rows) == len(want) > 4
+    for i, (got, w) in enumerate(zip(rows, want)):
+        for g in (got, rows[i], rows[i - len(rows)]):
+            assert list(g) == list(w) == list(cols)
+            assert [type(v) for v in g.values()] == [type(v) for v in w.values()]
+            assert g == w
+    assert type(rows[0]["containment"]) is float and type(rows[0]["ksize"]) is int
+    for s in (slice(1, 4), slice(None, None, -2), slice(-3, None), slice(5, 2)):
+        assert type(rows[s]) is list and rows[s] == want[s]
+    again = getattr(tsearch, search)(pair.pq, pair.pt, threshold=threshold)
+    assert rows == want and want == rows and rows == tuple(want) and rows == again
+    assert rows != want[:-1] and rows != want[::-1] and rows != "rows"
+    with pytest.raises(IndexError):
+        rows[len(rows)]
+    with pytest.raises(TypeError):
+        hash(rows)
 
 
 @pytest.mark.parametrize("search", ["manysearch", "multisearch"])

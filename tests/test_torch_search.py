@@ -97,13 +97,12 @@ def test_sparse_search_matches_jax(kw, high_ab):
         assert got.weight.max() >= 2**31
 
 
-def test_manysearch_csv_matches_jax(tmp_path, monkeypatch):
+def test_manysearch_csv_matches_jax(tmp_path):
     import kmerseek_tpu.core.search as jsearch
     from kmerseek_tpu.core.index import IndexConfig as JCfg
     from kmerseek_tpu.core.index import ProteomeIndex as JIdx
     from kmerseek_tpu_torch.core import search as tsearch
 
-    monkeypatch.setenv("KMERSEEK_SEARCH_VALIDATE", "always")
     tfa, qfa = str(tmp_path / "t.fa"), str(tmp_path / "q.fa")
     seqs = write_fasta(tfa, n=40, seed=5, max_len=400)
     rng = np.random.default_rng(6)
@@ -118,10 +117,23 @@ def test_manysearch_csv_matches_jax(tmp_path, monkeypatch):
     jq = JIdx.build(qfa, JCfg(*cfg), engine="device")
     jt = JIdx.build(tfa, JCfg(*cfg), engine="device")
     runs = cross_checks()
-    out_p = io.StringIO()
-    tsearch._write_rows(out_p, tsearch.manysearch(pq, pt), tsearch.MANYSEARCH_COLUMNS)
+    out_p = tsearch.rows_to_csv(tsearch.manysearch(pq, pt), tsearch.MANYSEARCH_COLUMNS)
     assert cross_checks() == runs + 1
     out_j = io.StringIO()
     jsearch._write_rows(out_j, jsearch.manysearch(jq, jt), jsearch.MANYSEARCH_COLUMNS)
-    assert out_p.getvalue() == out_j.getvalue()
-    assert out_p.getvalue().count("\n") > 12
+    assert out_p == out_j.getvalue()
+    assert out_p.count("\n") > 12
+
+
+def test_every_manysearch_call_is_cross_checked():
+    """Three calls on one (query, target) pair run the device
+    cross-check three times: there is no schedule that skips a call."""
+    from kmerseek_tpu_torch.core import search as tsearch
+
+    mins, ab, offsets, _q, _v = _corpus(T=600, Q=8)
+    target = _index(mins, ab, offsets)
+    query = _index(mins[: offsets[8]], ab[: offsets[8]], offsets[:9])
+    runs = cross_checks()
+    rows = [tsearch.manysearch(query, target) for _ in range(3)]
+    assert cross_checks() == runs + 3
+    assert len(rows[0]) >= 8 and rows[0] == rows[1] == rows[2]

@@ -240,9 +240,8 @@ def test_single_process_sharded_build_degenerates(corpus, monkeypatch):
     _same_columns(tsh.sharded_multisearch_columns(pq, sh), jsearch.multisearch_columns(jq, jt))
 
 
-def test_local_join_is_cross_checked_on_the_shard_device(corpus, monkeypatch):
+def test_local_join_is_cross_checked_on_the_shard_device(corpus):
     _tfa, pt, pq, _jt, _jq = corpus
-    monkeypatch.setenv("KMERSEEK_SEARCH_VALIDATE", "always")
     _meta, shards, _m, _p = _simulate(tsh, pt, 2, 2, device="cpu")
     before = cross_checks()
     tsh.local_manysearch_payload(pq, shards[0])

@@ -19,7 +19,7 @@ import pytest
 from kbench.reference import stitch as ref
 from kmerseek_tpu_torch.core import kmers, stitch
 from kmerseek_tpu_torch.core.index import IndexConfig, ProteomeIndex
-from kmerseek_tpu_torch.core.search import manysearch
+from kmerseek_tpu_torch.core.search import MANYSEARCH_COLUMNS, SearchRows, manysearch
 from kmerseek_tpu_torch.utils import metrics
 from test_torch_index import write_fasta
 
@@ -136,6 +136,35 @@ def test_write_stitched_writes_the_bytes_of_the_former_cli_tail(tmp_path, capsys
         assert f.read() == data
     with open(paths["report.txt"]) as f:
         assert f.read() == former.err
+
+
+@pytest.mark.parametrize("block", ["per_pair", "by_match_name", "no_rows"])
+def test_write_stitched_reads_search_rows_as_their_list(tmp_path, block):
+    """``write_stitched`` from the ``SearchRows`` that ``manysearch``
+    returns and from the list of its row dicts: the same frame, counts,
+    CSV and report; a block with no rows writes the header-only CSV the
+    reference expects."""
+    group_by_pair = block != "by_match_name"
+    _q, _t, rows, paths, _ = _port(tmp_path, SETTINGS[0], shared_target=group_by_pair,
+                                   group_by_pair=group_by_pair)
+    assert isinstance(rows, SearchRows) and len(rows) >= 4
+    if block == "no_rows":
+        rows = SearchRows({c: [] for c in MANYSEARCH_COLUMNS})
+    got = {}
+    for kind, given in (("rows", rows), ("list", list(rows))):
+        csv_p, rep_p = str(tmp_path / f"{kind}.csv"), str(tmp_path / f"{kind}.txt")
+        frame, counts = stitch.write_stitched(given, paths["q.kmers.pq"], paths["t.kmers.pq"], csv_p, rep_p,
+                                              group_by_pair=group_by_pair)
+        with open(csv_p) as f, open(rep_p) as g:
+            got[kind] = (frame, counts, f.read(), g.read())
+    assert got["rows"][0].equals(got["list"][0]) and got["rows"][1:] == got["list"][1:]
+    if block == "no_rows":
+        assert got["rows"][2] == ",".join(stitch.STITCH_COLUMNS) + "\n" and got["rows"][3] == "\n"
+        assert ref.compare_stitched(str(tmp_path / "rows.csv"), []) == {"stitched_rows_off": 0,
+                                                                       "stitched_cells_off": 0}
+    else:
+        with open(paths["s.csv"]) as f:
+            assert got["rows"][2] == f.read() and got["rows"][2].count("\n") >= 5
 
 
 def test_spans_nest_under_stitch_write_and_kmers_extract(tmp_path):
