@@ -5,7 +5,8 @@ Artifacts are cached on disk under kmerseek's filename conventions and
 reused unless ``force``:
 
 * ``{fasta}.{moltype}.k{k}.scaled{s}.sig.zip``
-* ``{sig}.kmers.pq`` — the k-mer sidecar (``extract_kmers``)
+* ``{sig}.kmers.pq`` — the k-mer sidecar (``extract_kmers``), and
+  ``{sig}.kmers.pq.hidx`` its hash index
 * ``{sig}.ksx`` — the columnar index directory
 """
 

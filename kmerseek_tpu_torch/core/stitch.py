@@ -31,9 +31,10 @@ dicts), read through ``search.result_columns``; the CSV goes through the
 search CSV writer (``search._write_csv``).
 Spans (``utils.metrics``): ``stitch.write`` around it, with children
 ``stitch.scan`` (one a sidecar; counters ``stitch.rows_scanned``,
-``stitch.hash_hits``, ``stitch.rows_kept`` and ``stitch.groups_decoded``),
-``stitch.join``, ``stitch.segments`` (counter ``stitch.segments``) and
-``stitch.csv``.
+``stitch.hash_hits``, ``stitch.rows_kept``, ``stitch.groups_decoded``,
+and on the target side ``stitch.index_probes`` or
+``stitch.index_fallbacks``), ``stitch.join``, ``stitch.segments``
+(counter ``stitch.segments``) and ``stitch.csv``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import pandas as pd
 
 from ..utils.metrics import count, span
+from .kmers import KMERS_SCHEMA, HashIndex, open_hash_index
 from .search import _write_csv, result_columns
 
 STITCH_COLUMNS = [
@@ -272,43 +274,58 @@ def _hash_hits(hashes, hash_filter, bitmap):
     return cand[hash_filter[pos] == got]
 
 
-def _scan_kmer_parquet(
-    path: str,
-    names: set,
-    hash_filter=None,
-    batch_rows: int = 1 << 16,
-) -> Tuple[pd.DataFrame, int]:
-    """Stream a k-mer sidecar parquet and keep only rows that can
-    survive the stitch joins: ``sequence_name ∈ names`` and (when
-    given) ``hashval ∈ hash_filter`` (a SORTED uint64 array).
+def _probe_hash_index(hidx: HashIndex, names: set, hash_filter):
+    """The rows of the indexed sidecar that ``_scan_row_groups`` keeps, as
+    one table of ``KMERS_SCHEMA``, found by binary search in the index:
+    each filter hash's run of equal hashes (collisions fan out), then the
+    name codes of those rows against the codes of ``names``. Decodes no
+    parquet column."""
+    import numpy as np
+    import pyarrow as pa
 
-    This is the reference's LazyFrame predicate pushdown
-    (search.py:179-181, entity.py:61-71) done by hand, one parquet row
-    group at a time, so a 10^8-row target sidecar streams through instead
-    of materializing. In each row group the ``hashval`` column alone is
-    probed first; ``sequence_name`` is read (as a dictionary, its
-    distinct names tested once) only for the hash hits, and the other
-    columns only in a group where some row passed both. No Python object
-    is built for a row that cannot join. Without ``hash_filter`` (the
-    query side) every row goes to the name test. ``batch_rows`` is kept
-    for callers; the read unit is the file's row group.
+    hash_filter = np.unique(np.asarray(hash_filter, dtype=np.uint64))
+    lo = np.searchsorted(hidx.hashes, hash_filter, "left")
+    runs = np.searchsorted(hidx.hashes, hash_filter, "right") - lo
+    # the sorted positions lo .. lo + run - 1 of every run, in one array
+    pos = np.repeat(lo - np.cumsum(runs) + runs, runs) + np.arange(runs.sum())
+    rows = hidx.order[pos]
+    count("stitch.rows_scanned", hidx.rows)
+    count("stitch.hash_hits", len(rows))
 
-    The decode of a group's other columns, most of the scan's time, runs
-    in a second thread while this one probes the next group: at most one
-    group's string columns are decoded at a time, beside the next group's
-    hashes and names.
+    wanted = [n.encode() for n in names]
+    wanted = np.array([w for w in wanted if len(w) <= hidx.names.itemsize], dtype=hidx.names.dtype)
+    at = np.searchsorted(hidx.names, wanted)
+    found = at < len(hidx.names)
+    found[found] = hidx.names[at[found]] == wanted[found]
+    codes = hidx.codes[at[found]]
+    keep = np.isin(hidx.records["name"][rows], codes)
+    in_file_order = np.argsort(rows[keep], kind="stable")
+    rows, hashes = rows[keep][in_file_order], hidx.hashes[pos[keep][in_file_order]]
+    rec = hidx.records[rows]
+    count("stitch.rows_kept", len(rows))
+    count("stitch.groups_decoded", 0)
 
-    Row order of the survivors is the file's row order, and their
-    columns have the types a plain read of the file gives, so downstream
-    pandas merges see exactly the rows the eager path's merges would
-    keep, in the same order — output stays byte-identical. Returns the
-    kept rows and the number of rows read.
+    def text(col):
+        return pa.array(np.ascontiguousarray(rec[col])).cast(pa.large_string())
 
-    Counters on the ``stitch.scan`` span: ``stitch.rows_scanned`` (rows
-    whose hash, or name without a hash filter, was tested),
-    ``stitch.hash_hits`` (of them, rows that pass the hash probe; all
-    without a filter), ``stitch.rows_kept`` and ``stitch.groups_decoded``
-    (row groups whose other columns were read)."""
+    by_code = np.argsort(codes)
+    name_of = np.array([w.decode() for w in wanted[found]], dtype=object)[by_code]
+    return pa.Table.from_arrays(
+        [
+            pa.array(np.full(len(rows), hidx.sequence_file, dtype=object), pa.large_string()),
+            pa.array(name_of[np.searchsorted(codes[by_code], rec["name"])], pa.large_string()),
+            text("kmer"),
+            pa.array(hashes, pa.uint64()),
+            text("encoded"),
+            pa.array(rec["start"], pa.uint32()),
+        ],
+        schema=KMERS_SCHEMA,
+    )
+
+
+def _scan_row_groups(path: str, names: set, hash_filter):
+    """The rows of the sidecar ``path`` that ``_scan_kmer_parquet`` keeps,
+    read from the parquet a row group at a time: a list of tables."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -316,48 +333,100 @@ def _scan_kmer_parquet(
     import pyarrow.compute as pc
     import pyarrow.parquet as pq
 
+    pf = pq.ParquetFile(path, read_dictionary=["sequence_name"])
+    decoder_pf = pq.ParquetFile(path)  # a ParquetFile is not shared between threads
+    schema = decoder_pf.schema_arrow
+    wanted = pa.array(list(names), pa.large_string())
+    if hash_filter is not None:
+        hash_filter = np.asarray(hash_filter, dtype=np.uint64)
+        bitmap = np.zeros(1 << _PROBE_BITS, dtype=bool)
+        bitmap[hash_filter >> np.uint64(64 - _PROBE_BITS)] = True
+
+    def survivors(g, rows, read):
+        rest = [c for c in schema.names if c not in read]
+        read.update(zip(rest, decoder_pf.read_row_group(g, columns=rest).columns))
+        table = pa.table([read[c].take(rows) for c in schema.names], names=schema.names)
+        return table.cast(schema)
+
+    kept, decoding = [], None
+    with ThreadPoolExecutor(1) as decoder:
+        for g in range(pf.num_row_groups):
+            n = pf.metadata.row_group(g).num_rows
+            read = {}  # column name -> the row group's whole column
+            rows = np.arange(n)
+            if hash_filter is not None:
+                read["hashval"] = pf.read_row_group(g, columns=["hashval"]).column(0)
+                rows = _hash_hits(read["hashval"].to_numpy(), hash_filter, bitmap)
+            count("stitch.rows_scanned", n)
+            count("stitch.hash_hits", len(rows))
+            if len(rows):
+                read["sequence_name"] = pf.read_row_group(g, columns=["sequence_name"]).column(0)
+                # a dictionary column: is_in looks each distinct name up once
+                hit = pc.is_in(read["sequence_name"].take(rows), value_set=wanted)
+                rows = rows[hit.to_numpy()]
+            count("stitch.rows_kept", len(rows))
+            count("stitch.groups_decoded", int(len(rows) > 0))
+            if len(rows):
+                if decoding is not None:
+                    kept.append(decoding.result())
+                decoding = decoder.submit(survivors, g, rows, read)
+        if decoding is not None:
+            kept.append(decoding.result())
+    return kept, pf.metadata.num_rows
+
+
+def _scan_kmer_parquet(
+    path: str,
+    names: set,
+    hash_filter=None,
+    batch_rows: int = 1 << 16,
+) -> Tuple[pd.DataFrame, int]:
+    """Keep only the rows of a k-mer sidecar parquet that can survive
+    the stitch joins: ``sequence_name ∈ names`` and (when given)
+    ``hashval ∈ hash_filter`` (a SORTED uint64 array).
+
+    This is the reference's LazyFrame predicate pushdown
+    (search.py:179-181, entity.py:61-71) done by hand, so a 10^8-row
+    target sidecar is never materialized. With a hash filter and a hash
+    index that matches the parquet (``kmers.open_hash_index``), the rows
+    are found in the index (``_probe_hash_index``) and no parquet column
+    is decoded. Otherwise (no filter: the query side; no index; a stale
+    or unreadable one) the parquet is scanned one row group at a time
+    (``_scan_row_groups``): in each row group the ``hashval`` column alone
+    is probed first; ``sequence_name`` is read (as a dictionary, its
+    distinct names tested once) only for the hash hits, and the other
+    columns only in a group where some row passed both, decoded in a
+    second thread while this one probes the next group. No Python object
+    is built for a row that cannot join. Without ``hash_filter`` every row
+    goes to the name test. ``batch_rows`` is kept for callers; the read
+    unit is the file's row group.
+
+    Row order of the survivors is the file's row order, and their
+    columns have the types a plain read of the file gives, so downstream
+    pandas merges see exactly the rows the eager path's merges would
+    keep, in the same order — output stays byte-identical. Returns the
+    kept rows and the number of rows in the file.
+
+    Counters on the ``stitch.scan`` span: ``stitch.rows_scanned`` (the
+    file's rows, each decided by the probe: its hash, or without a hash
+    filter its name, tested), ``stitch.hash_hits`` (of them, rows whose
+    hash is in the filter; all without a filter), ``stitch.rows_kept``,
+    ``stitch.groups_decoded`` (row groups whose other columns were read;
+    0 through the index), and with a hash filter ``stitch.index_probes``
+    (1 where the index answered) or ``stitch.index_fallbacks`` (1 where
+    the parquet was scanned)."""
     with span("stitch.scan"):
-        schema = pq.read_schema(path)
-        pf = pq.ParquetFile(path, read_dictionary=["sequence_name"])
-        decoder_pf = pq.ParquetFile(path)  # a ParquetFile is not shared between threads
-        wanted = pa.array(list(names), pa.large_string())
-        if hash_filter is not None:
-            hash_filter = np.asarray(hash_filter, dtype=np.uint64)
-            bitmap = np.zeros(1 << _PROBE_BITS, dtype=bool)
-            bitmap[hash_filter >> np.uint64(64 - _PROBE_BITS)] = True
+        hidx = open_hash_index(path) if hash_filter is not None else None
+        if hidx is not None:
+            count("stitch.index_probes", 1)
+            kept, scanned = [_probe_hash_index(hidx, names, hash_filter)], hidx.rows
+        else:
+            if hash_filter is not None:
+                count("stitch.index_fallbacks", 1)
+            kept, scanned = _scan_row_groups(path, names, hash_filter)
+        if sum(map(len, kept)):
+            import pyarrow as pa
 
-        def survivors(g, rows, read):
-            rest = [c for c in schema.names if c not in read]
-            read.update(zip(rest, decoder_pf.read_row_group(g, columns=rest).columns))
-            table = pa.table([read[c].take(rows) for c in schema.names], names=schema.names)
-            return table.cast(schema)
-
-        kept, scanned, decoding = [], 0, None
-        with ThreadPoolExecutor(1) as decoder:
-            for g in range(pf.num_row_groups):
-                n = pf.metadata.row_group(g).num_rows
-                read = {}  # column name -> the row group's whole column
-                rows = np.arange(n)
-                if hash_filter is not None:
-                    read["hashval"] = pf.read_row_group(g, columns=["hashval"]).column(0)
-                    rows = _hash_hits(read["hashval"].to_numpy(), hash_filter, bitmap)
-                scanned += n
-                count("stitch.rows_scanned", n)
-                count("stitch.hash_hits", len(rows))
-                if len(rows):
-                    read["sequence_name"] = pf.read_row_group(g, columns=["sequence_name"]).column(0)
-                    # a dictionary column: is_in looks each distinct name up once
-                    hit = pc.is_in(read["sequence_name"].take(rows), value_set=wanted)
-                    rows = rows[hit.to_numpy()]
-                count("stitch.rows_kept", len(rows))
-                count("stitch.groups_decoded", int(len(rows) > 0))
-                if len(rows):
-                    if decoding is not None:
-                        kept.append(decoding.result())
-                    decoding = decoder.submit(survivors, g, rows, read)
-            if decoding is not None:
-                kept.append(decoding.result())
-        if kept:
             # numbered 0..n-1 even where a pandas-written sidecar stores an index
             return pa.concat_tables(kept).to_pandas().reset_index(drop=True), scanned
     cols = [

@@ -4,8 +4,10 @@ numpy and Python, nothing of either package): the block's sidecar row
 for row, the stitched CSV and the report with per-pair and with
 kmerseek's match-name grouping, ``write_stitched`` against the CLI's
 former inline tail, the spans and counters of both layers, planted
-faults that the comparison must read as not correct, and the sidecar
-scan against its former row-at-a-time version on synthetic sidecars."""
+faults that the comparison must read as not correct, the sidecar scan
+against its former row-at-a-time version on synthetic sidecars, with and
+without their hash index, and the scan's fall-back where an index is
+missing, stale or damaged."""
 
 import os
 
@@ -56,9 +58,10 @@ def _corpus(d, seed, shared_target):
     return q, t
 
 
-def _port(d, settings, shared_target=False, group_by_pair=True, seed=3):
+def _port(d, settings, shared_target=False, group_by_pair=True, seed=3, target_index=True):
     """Both indexes, the manysearch rows, both sidecars and the stitched
-    products of the port on the CPU."""
+    products of the port on the CPU; without ``target_index`` the target
+    sidecar's hash index is removed before the stitch."""
     q, t = _corpus(d, seed, shared_target)
     cfg = IndexConfig(settings[1], settings[2], settings[0])
     query = ProteomeIndex.build(q, cfg, store_raw_sequences=True, device="cpu")
@@ -67,6 +70,8 @@ def _port(d, settings, shared_target=False, group_by_pair=True, seed=3):
     paths = {p: str(d / p) for p in ("q.kmers.pq", "t.kmers.pq", "s.csv", "report.txt")}
     kmers.write_kmer_table_for_index(query, paths["q.kmers.pq"])
     kmers.write_kmer_table_for_index(target, paths["t.kmers.pq"])
+    if not target_index:
+        os.remove(kmers.kmer_hash_index_filename(paths["t.kmers.pq"]))
     _, counts = stitch.write_stitched(rows, paths["q.kmers.pq"], paths["t.kmers.pq"], paths["s.csv"],
                                       paths["report.txt"], group_by_pair=group_by_pair)
     return q, t, rows, paths, counts
@@ -96,13 +101,28 @@ def test_block_sidecar_equals_the_reference_row_for_row(tmp_path, settings):
         assert got.to_pydict() == want
 
 
+def _target_scan_counts(since):
+    """The counters of the last ``stitch.scan`` span after ``since``: the
+    target side's."""
+    return [r for r in metrics.records(since=since) if r.name == "stitch.scan"][-1].counts
+
+
+def _since():
+    return metrics.records()[-1].t1 if metrics.records() else 0.0
+
+
 @pytest.mark.parametrize("settings", SETTINGS)
 @pytest.mark.parametrize("group_by_pair", [True, False])
-def test_stitched_csv_and_report_equal_the_reference(tmp_path, settings, group_by_pair):
+@pytest.mark.parametrize("target_index", [True, False], ids=["indexed", "scanned"])
+def test_stitched_csv_and_report_equal_the_reference(tmp_path, settings, group_by_pair, target_index):
     # the shared target is planted only where rows are grouped per pair:
     # grouped by match name, its two queries' k-mers trip kmerseek's assertion
+    since = _since()
     q, t, rows, paths, counts = _port(tmp_path, settings, shared_target=group_by_pair,
-                                      group_by_pair=group_by_pair)
+                                      group_by_pair=group_by_pair, target_index=target_index)
+    target_counts = _target_scan_counts(since)
+    assert target_counts["stitch.index_probes" if target_index else "stitch.index_fallbacks"] == 1
+    assert target_counts["stitch.groups_decoded"] == int(not target_index)
     out, want = _checks(q, t, paths, settings, group_by_pair)
     assert out == dict.fromkeys(CHECKS, 0)
     assert len(want) >= 4 and counts.segments == len(want)
@@ -114,12 +134,15 @@ def test_stitched_csv_and_report_equal_the_reference(tmp_path, settings, group_b
 
 
 @pytest.mark.parametrize("group_by_pair", [False, True])
-def test_write_stitched_writes_the_bytes_of_the_former_cli_tail(tmp_path, capsys, group_by_pair):
+@pytest.mark.parametrize("target_index", [True, False], ids=["indexed", "scanned"])
+def test_write_stitched_writes_the_bytes_of_the_former_cli_tail(tmp_path, capsys, group_by_pair, target_index):
     """The tail ``search --extract-kmers`` ran inline before
     ``write_stitched``: the streaming stitch, ``click.echo`` of the
-    report to stderr, the CSV to stdout (or a file)."""
+    report to stderr, the CSV to stdout (or a file); with and without
+    the target sidecar's hash index."""
     _q, _t, rows, paths, _ = _port(tmp_path, SETTINGS[0], shared_target=group_by_pair,
-                                   group_by_pair=group_by_pair)
+                                   group_by_pair=group_by_pair, target_index=target_index)
+    assert os.path.exists(kmers.kmer_hash_index_filename(paths["t.kmers.pq"])) == target_index
     capsys.readouterr()
     stitched, report = stitch.stitch_results_streaming(rows, paths["q.kmers.pq"], paths["t.kmers.pq"],
                                                        group_by_pair=group_by_pair)
@@ -174,10 +197,10 @@ def test_spans_nest_under_stitch_write_and_kmers_extract(tmp_path):
     by_id = {r.span_id: r for r in recs}
     parent = lambda r: by_id[r.parent_id].name if r.parent_id in by_id else None  # noqa: E731
     names = {r.name for r in recs}
-    assert {"kmers.extract", "kmers.hash", "kmers.strings", "kmers.write", "stitch.write", "stitch.scan",
-            "stitch.join", "stitch.segments", "stitch.csv"} <= names
+    assert {"kmers.extract", "kmers.hash", "kmers.strings", "kmers.write", "kmers.index", "stitch.write",
+            "stitch.scan", "stitch.join", "stitch.segments", "stitch.csv"} <= names
     for r in recs:
-        if r.name in ("kmers.hash", "kmers.strings", "kmers.write"):
+        if r.name in ("kmers.hash", "kmers.strings", "kmers.write", "kmers.index"):
             assert parent(r) == "kmers.extract"
         if r.name in ("stitch.scan", "stitch.join", "stitch.segments", "stitch.csv"):
             assert parent(r) == "stitch.write"
@@ -196,9 +219,12 @@ def test_spans_nest_under_stitch_write_and_kmers_extract(tmp_path):
     t_hashes = pq.read_table(paths["t.kmers.pq"]).column("hashval").to_numpy()
     assert scans[1].counts["stitch.hash_hits"] == np.isin(t_hashes, q_hashes.to_numpy()).sum()
     assert scans[1].counts["stitch.rows_kept"] <= scans[1].counts["stitch.hash_hits"]
-    # one row group a sidecar, with kept rows in each
+    # one row group a sidecar, with kept rows in each; the target's rows come
+    # from its hash index, which decodes no group; the query side has no probe
     assert pq.ParquetFile(paths["t.kmers.pq"]).num_row_groups == 1
-    assert [r.counts["stitch.groups_decoded"] for r in scans] == [1, 1]
+    assert [r.counts["stitch.groups_decoded"] for r in scans] == [1, 0]
+    assert scans[1].counts["stitch.index_probes"] == 1 and "stitch.index_fallbacks" not in scans[1].counts
+    assert not {"stitch.index_probes", "stitch.index_fallbacks"} & set(scans[0].counts)
     (seg,) = [r for r in recs if r.name == "stitch.segments"]
     assert seg.counts == {"stitch.segments": counts.segments}
     # on the CPU no host wait is on a CUDA tensor
@@ -269,11 +295,13 @@ def _former_scan(path, names, hash_filter=None, batch_rows=1 << 16):
 
 
 def _synthetic_sidecar(path, n_rows, group_rows, seed, high_hashes=False, string_type=pa.large_string(),
-                       use_dictionary=True):
+                       use_dictionary=True, shared=(), compression="snappy"):
     """A sidecar of ``n_rows`` rows in row groups of ``group_rows``: 40
     UniProt-style names in runs, as the rows of one sequence are, random
     24-mers and uint64 hashes (all ≥ 2^63 with ``high_hashes``, the
-    largest planted). Returns the hashes and the 40 names."""
+    largest planted; with ``shared`` offsets, rows ``SHARED_BASES + offset``
+    take the hash of their base row, as hp and dayhoff collisions do).
+    Returns the hashes and the 40 names."""
     rng = np.random.default_rng(seed)
     names = np.array([f"sp|P{i:05d}|T{i}_HUMAN target {i}" for i in range(40)], dtype=object)
     seq = np.sort(rng.integers(0, 40, size=n_rows))
@@ -282,6 +310,8 @@ def _synthetic_sidecar(path, n_rows, group_rows, seed, high_hashes=False, string
     hashes = rng.integers(low, 1 << 64, size=n_rows, dtype=np.uint64, endpoint=False)
     if high_hashes:
         hashes[: min(n_rows, 3)] = [(1 << 64) - 1, 1 << 63, (1 << 64) - 2][: min(n_rows, 3)]
+    for off in shared:
+        hashes[SHARED_BASES + off] = hashes[SHARED_BASES]
     starts = np.arange(n_rows, dtype=np.uint32) % 997
     schema = pa.schema([(c, string_type if t == pa.large_string() else t) for c, t in
                         zip(kmers.KMERS_SCHEMA.names, kmers.KMERS_SCHEMA.types)])
@@ -289,8 +319,20 @@ def _synthetic_sidecar(path, n_rows, group_rows, seed, high_hashes=False, string
         [pa.array(np.full(n_rows, "/data/t.fa", dtype=object), string_type), pa.array(names[seq], string_type),
          pa.array(kmer, string_type), pa.array(hashes, pa.uint64()), pa.array(np.char.lower(kmer), string_type),
          pa.array(starts, pa.uint32())], schema=schema)
-    pq.write_table(table, path, row_group_size=group_rows, use_dictionary=use_dictionary)
+    pq.write_table(table, path, row_group_size=group_rows, use_dictionary=use_dictionary, compression=compression)
     return hashes, names
+
+
+SHARED_BASES = np.arange(8) * 11 + 5
+
+
+def _write_hash_index(path, chunk_rows=100):
+    """The hash index of the sidecar ``path``, written by the sidecar
+    writer's index writer from the file's rows in chunks of ``chunk_rows``."""
+    with kmers._HashIndexWriter(path, 24) as writer:
+        for batch in pq.ParquetFile(path).iter_batches(batch_size=chunk_rows):
+            writer.add(pa.Table.from_batches([batch]))
+        writer.finish(path)
 
 
 def _filter_case(case, hashes, names, group_rows, rng):
@@ -308,6 +350,10 @@ def _filter_case(case, hashes, names, group_rows, rng):
         return set(names.tolist()), np.unique(np.setdiff1d(absent, hashes))
     if case == "one group survives":
         return set(names.tolist()), np.unique(hashes[3 * group_rows + 5: 3 * group_rows + 25])
+    if case == "equal hashes, other names":
+        return set(names.tolist()), np.unique(np.concatenate([hashes[SHARED_BASES], absent]))
+    if case == "one hash in several row groups":
+        return some_names, np.unique(hashes[SHARED_BASES])
     return some_names, np.unique(np.concatenate([drawn, hashes[:3], absent]))
 
 
@@ -323,18 +369,25 @@ SCAN_CASES = {  # id: (rows, row group rows, batch_rows, sidecar options)
     "no dictionary encoding": (1000, 64, 64, {"use_dictionary": False}),
     "string columns": (1000, 64, 64, {"string_type": pa.string()}),
     "query side": (1000, 64, 64, {}),
+    # one row group; the rows sharing a hash lie 30 and 60 rows apart, under other names
+    "equal hashes, other names": (1000, 1 << 20, 1 << 16, {"shared": (30, 60)}),
+    # rows sharing a hash in four row groups, some under one name
+    "one hash in several row groups": (1000, 64, 64, {"shared": (3, 64, 130, 700)}),
 }
 
 
+@pytest.mark.parametrize("indexed", [False, True], ids=["scanned", "indexed"])
 @pytest.mark.parametrize("case", list(SCAN_CASES))
-def test_scan_equals_the_former_scan(tmp_path, case):
+def test_scan_equals_the_former_scan(tmp_path, case, indexed):
     n_rows, group_rows, batch_rows, opts = SCAN_CASES[case]
     path = str(tmp_path / "s.kmers.pq")
     seed = 11 + list(SCAN_CASES).index(case)
     hashes, names = _synthetic_sidecar(path, n_rows, group_rows, seed, **opts)
+    if indexed:
+        _write_hash_index(path)
     want_names, hash_filter = _filter_case(case, hashes, names, group_rows, np.random.default_rng(seed))
     want, want_scanned = _former_scan(path, want_names, hash_filter, batch_rows)
-    since = metrics.records()[-1].t1 if metrics.records() else 0.0
+    since = _since()
     got, scanned = stitch._scan_kmer_parquet(path, want_names, hash_filter, batch_rows)
     (rec,) = [r for r in metrics.records(since=since) if r.name == "stitch.scan"]
     assert got.equals(want) and list(got.dtypes) == list(want.dtypes) and list(got.columns) == list(want.columns)
@@ -343,16 +396,139 @@ def test_scan_equals_the_former_scan(tmp_path, case):
     table = pq.read_table(path).to_pandas()
     in_hashes = np.ones(n_rows, bool) if hash_filter is None else np.isin(hashes, hash_filter)
     kept_rows = np.flatnonzero(in_hashes & table["sequence_name"].isin(want_names).to_numpy())
+    probed = indexed and hash_filter is not None  # the query side has no hash filter: always scanned
+    groups = 0 if probed else len(set(kept_rows // group_rows))
+    index_counter = {} if hash_filter is None else {"stitch.index_probes" if probed else "stitch.index_fallbacks": 1}
     assert rec.counts == {"stitch.rows_scanned": n_rows, "stitch.hash_hits": in_hashes.sum(),
-                          "stitch.rows_kept": len(want), "stitch.groups_decoded": len(set(kept_rows // group_rows))}
+                          "stitch.rows_kept": len(want), "stitch.groups_decoded": groups, **index_counter}
     assert rec.counts["stitch.hash_hits"] <= rec.counts["stitch.rows_scanned"] and len(kept_rows) == len(want)
     if case in ("empty hash filter", "no matching name", "no survivor"):
         assert len(want) == 0 and rec.counts["stitch.groups_decoded"] == 0
     else:
         assert len(want) > 0
     if case == "one group survives":
-        assert rec.counts["stitch.groups_decoded"] == 1
+        assert rec.counts["stitch.groups_decoded"] == int(not probed)
     if case == "no matching name":
         assert rec.counts["stitch.hash_hits"] > 0
     if case == "hashes >= 2^63":  # the first target's rows, 2^64 - 1 and 2^63 among them
         assert want["hashval"].min() >= 1 << 63 and (1 << 64) - 1 in set(want["hashval"].tolist())
+    if opts.get("shared"):  # every shared hash fans out to rows under more than one name
+        assert len(want) > len(np.intersect1d(hash_filter, hashes))
+        rows_of = table.iloc[np.flatnonzero(np.isin(hashes, hashes[SHARED_BASES]))]
+        assert (rows_of.groupby("hashval")["sequence_name"].nunique() > 1).all()
+    if case == "one hash in several row groups":
+        sets = [set(np.flatnonzero(hashes == h) // group_rows) for h in hashes[SHARED_BASES]]
+        assert all(len(g) >= 3 for g in sets)
+
+
+def _stale(path, how):
+    """Leave the sidecar ``path`` as ``how`` says: without an index, or
+    with one that no longer describes it."""
+    index = kmers.kmer_hash_index_filename(path)
+    if how == "no index":
+        return
+    _write_hash_index(path)
+    st = os.stat(path)
+    if how == "rewritten, other size":
+        table = pq.read_table(path)
+        pq.write_table(table.slice(1), path, row_group_size=64)
+        assert os.stat(path).st_size != st.st_size
+    elif how == "same size, later mtime":
+        os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000_000))
+    elif how == "same size and mtime, other bytes":
+        # uncompressed and plain: a hash of the last row group changed in place,
+        # inside its group's range, keeps the size; the index's digest of the
+        # file's last bytes differs
+        table = pq.read_table(path).to_pydict()
+        last = table["hashval"][-40:]
+        h = sorted(last)
+        i = len(table["hashval"]) - 40 + last.index(h[20])
+        table["hashval"][i] = (h[20] + h[21]) // 2
+        pq.write_table(pa.Table.from_pydict(table, schema=kmers.KMERS_SCHEMA), path, row_group_size=64,
+                       use_dictionary=False, compression="none")
+        os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns))
+        assert os.stat(path).st_size == st.st_size and os.stat(path).st_mtime_ns == st.st_mtime_ns
+    elif how == "truncated index":
+        with open(index, "r+b") as f:
+            f.truncate(os.path.getsize(index) - 8)
+    elif how == "unknown version":
+        with open(index, "r+b") as f:
+            f.seek(len(kmers.HASH_INDEX_MAGIC))
+            f.write(np.uint32(kmers.HASH_INDEX_VERSION + 1).tobytes())
+
+
+@pytest.mark.parametrize("how", ["no index", "rewritten, other size", "same size, later mtime",
+                                 "same size and mtime, other bytes", "truncated index", "unknown version"])
+def test_scan_falls_back_where_the_index_does_not_match(tmp_path, how):
+    path = str(tmp_path / "s.kmers.pq")
+    hashes, names = _synthetic_sidecar(path, 1000, 64, 5, use_dictionary=False, compression="none")
+    _stale(path, how)
+    want_names = set(names[::2].tolist())
+    hash_filter = np.unique(hashes[::7])
+    want, _ = _former_scan(path, want_names, hash_filter)
+    since = _since()
+    got, scanned = stitch._scan_kmer_parquet(path, want_names, hash_filter)
+    (rec,) = [r for r in metrics.records(since=since) if r.name == "stitch.scan"]
+    assert got.equals(want) and list(got.dtypes) == list(want.dtypes) and len(want) > 0
+    assert scanned == pq.ParquetFile(path).metadata.num_rows
+    assert rec.counts["stitch.index_fallbacks"] == 1 and rec.counts.get("stitch.index_probes", 0) == 0
+    assert rec.counts["stitch.groups_decoded"] > 0
+    assert kmers.open_hash_index(path) is None
+
+
+@pytest.mark.parametrize("settings", SETTINGS)
+def test_indexed_scan_of_the_sidecar_writers_sidecar_equals_the_former_scan(tmp_path, monkeypatch, settings):
+    """The sidecar writer's own sidecar and index, in several row groups
+    and index chunks: the probe keeps the rows the former scan keeps, for
+    every target name and for a third of them."""
+    monkeypatch.setattr(kmers, "KMERS_ROW_GROUP", 97)
+    batches = kmers.iter_kmer_batches
+    monkeypatch.setattr(kmers, "iter_kmer_batches", lambda *a, **kw: batches(*a, **{**kw, "batch_rows": 7}))
+    q, t, rows, paths, _ = _port(tmp_path, settings)
+    path = paths["t.kmers.pq"]
+    assert pq.ParquetFile(path).num_row_groups > 3
+    table = pq.read_table(path).to_pandas()
+    q_hashes = np.unique(pq.read_table(paths["q.kmers.pq"]).column("hashval").to_numpy())
+    all_names = set(table["sequence_name"])
+    for names in (all_names, set(sorted(all_names)[::3]) | {r["match_name"] for r in rows}):
+        want, _ = _former_scan(path, names, q_hashes)
+        since = _since()
+        got, scanned = stitch._scan_kmer_parquet(path, names, q_hashes)
+        (rec,) = [r for r in metrics.records(since=since) if r.name == "stitch.scan"]
+        assert rec.counts["stitch.index_probes"] == 1 and rec.counts["stitch.groups_decoded"] == 0
+        assert got.equals(want) and list(got.dtypes) == list(want.dtypes) and len(want) > 0
+        assert scanned == len(table)
+
+
+@pytest.mark.parametrize("settings", SETTINGS)
+def test_sidecar_parquet_is_the_bytes_written_without_the_index(tmp_path, monkeypatch, settings):
+    """The index changes nothing in the parquet: the sidecar writer's file
+    equals, byte for byte, the one it writes with the index writer taken
+    out."""
+    q, _t, _rows, paths, _ = _port(tmp_path, settings)
+    query = ProteomeIndex.build(q, IndexConfig(settings[1], settings[2], settings[0]), store_raw_sequences=True,
+                                device="cpu")
+
+    class NoIndex:
+        def __init__(self, path, k):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+        def add(self, chunk):
+            pass
+
+        def finish(self, parquet_path):
+            pass
+
+    monkeypatch.setattr(kmers, "_HashIndexWriter", NoIndex)
+    plain = str(tmp_path / "plain.kmers.pq")
+    kmers.write_kmer_table_for_index(query, plain)
+    with open(plain, "rb") as f, open(paths["q.kmers.pq"], "rb") as g:
+        assert f.read() == g.read()
+    assert not os.path.exists(kmers.kmer_hash_index_filename(plain))
+    assert kmers.open_hash_index(paths["q.kmers.pq"]) is not None
