@@ -307,6 +307,7 @@ class ProteomeIndex:
         self._name_ranks = None
         self._md5_array = None
         self._names_array = None
+        self._t_sums = None
         self._kmer_table = None
 
     # ------------------------------------------------------------------
@@ -507,6 +508,31 @@ class ProteomeIndex:
         if self._names_array is None:
             self._names_array = np.array(self.names, object)
         return self._names_array
+
+    def _target_sums(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(sketch sizes, summed abundances) of every signature, built once
+        (counter ``search.target_sums``). ``reduceat`` gives an empty
+        segment the next element, so the appended 0 and the size mask make
+        an empty sketch's weight 0 wherever it lies."""
+        if self._t_sums is None:
+            count("search.target_sums")
+            t_sizes = np.diff(self.offsets)
+            t_weight = np.add.reduceat(
+                np.append(self.abundances, 0), self.offsets[:-1]
+            ) * (t_sizes > 0)
+            self._t_sums = (t_sizes, t_weight)
+        return self._t_sums
+
+    @property
+    def t_sizes(self) -> np.ndarray:
+        """Sketch size of each signature (int64), cached."""
+        return self._target_sums()[0]
+
+    @property
+    def t_weight(self) -> np.ndarray:
+        """Summed abundances of each signature (int64; 0 for an empty
+        sketch), cached."""
+        return self._target_sums()[1]
 
     @property
     def name_ranks(self) -> np.ndarray:

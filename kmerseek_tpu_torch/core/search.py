@@ -448,8 +448,9 @@ def manysearch_columns(
 ) -> Dict[str, list]:
     """Column-native manysearch: {column: values} in MANYSEARCH_COLUMNS
     order (numeric columns as numpy arrays, text columns as lists).
-    Spans ``search.join`` and ``search.columns`` (the per-target sums and
-    the assembly, with ``search.cross_check`` inside; counter ``rows``)."""
+    Spans ``search.join`` and ``search.columns`` (the assembly, with
+    ``search.cross_check`` inside; counter ``rows``). The target's
+    per-target sums are its cached ``t_sizes`` / ``t_weight``."""
     if (query.config.ksize, query.config.scaled, query.config.moltype) != (
         target.config.ksize,
         target.config.scaled,
@@ -460,12 +461,8 @@ def manysearch_columns(
     if js.total == 0:
         return {c: [] for c in MANYSEARCH_COLUMNS}
     with span("search.columns"):
-        t_sizes = np.diff(target.offsets)
-        t_weight = np.add.reduceat(
-            np.append(target.abundances, 0), target.offsets[:-1]
-        ) * (t_sizes > 0)
         return _assemble_manysearch_columns(
-            query, target, js, threshold, t_sizes, t_weight,
+            query, target, js, threshold, target.t_sizes, target.t_weight,
             validate=lambda weighted: _validate_with_device(
                 query, target, js, weighted
             ),

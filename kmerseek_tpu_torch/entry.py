@@ -227,14 +227,15 @@ def _dryrun_sparse_scale(mesh) -> str:
     P = 4
     dest = shard_of_hash(mins, P, span)
     tid_all = np.repeat(np.arange(T, dtype=np.int64), np.diff(offsets))
-    t_weight = np.add.reduceat(np.append(ab, 0), offsets[:-1]) * (np.diff(offsets) > 0)
     md5s = list(target.md5_array)
     shards = []
     for d in range(P):
         m = dest == d
         local = build_local_inverted([{"mins": mins[m], "tid": tid_all[m], "ab": ab[m]}], T)
         shards.append(
-            ShardedProteomeIndex(cfg, target.names, np.diff(offsets), t_weight, md5s, local, d, P, device=dev0)
+            ShardedProteomeIndex(
+                cfg, target.names, target.t_sizes, target.t_weight, md5s, local, d, P, device=dev0
+            )
         )
     expected = manysearch_columns(query, target)
     payloads = [local_manysearch_payload(query, sh) for sh in shards]

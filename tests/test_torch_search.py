@@ -137,3 +137,58 @@ def test_every_manysearch_call_is_cross_checked():
     rows = [tsearch.manysearch(query, target) for _ in range(3)]
     assert cross_checks() == runs + 3
     assert len(rows[0]) >= 8 and rows[0] == rows[1] == rows[2]
+
+
+# sketch sizes per target: 0 marks an empty sketch
+SUM_LAYOUTS = {
+    "empty_first": [0, 3, 5, 2],
+    "empty_middle": [4, 0, 0, 3],
+    "empty_last": [2, 6, 0],
+    "empty_everywhere": [0, 1, 0, 7, 0, 0],
+    "one_target": [5],
+    "one_empty_target": [0],
+}
+
+
+@pytest.mark.parametrize("layout", list(SUM_LAYOUTS))
+def test_target_sums_match_the_per_block_expression(layout):
+    """``t_sizes`` / ``t_weight`` equal, bit for bit and in dtype, the
+    ``np.append`` + ``reduceat`` expression the columns once ran every
+    block, and a plain per-target sum; empty sketches read 0 wherever
+    they lie."""
+    sizes = np.asarray(SUM_LAYOUTS[layout], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    rng = np.random.default_rng(len(sizes))
+    mins = np.sort(rng.integers(1, 2**63, size=int(offsets[-1]), dtype=np.uint64))
+    ab = rng.integers(1, 2**40, size=int(offsets[-1]))
+    target = _index(mins, ab, offsets)
+    former_sizes = np.diff(offsets)
+    former_weight = np.add.reduceat(np.append(ab, 0), offsets[:-1]) * (former_sizes > 0)
+    plain = np.array([ab[a:b].sum() for a, b in zip(offsets[:-1], offsets[1:])], np.int64)
+    assert target.t_sizes.dtype == target.t_weight.dtype == np.int64
+    assert np.array_equal(target.t_sizes, former_sizes)
+    assert np.array_equal(target.t_weight, former_weight)
+    assert np.array_equal(target.t_weight, plain)
+    assert np.array_equal(target.t_weight[sizes == 0], np.zeros(int((sizes == 0).sum())))
+
+
+def test_target_sums_built_once_per_target():
+    """Two ``manysearch_columns`` calls against one target give the same
+    columns, and the target's sums are built once across both
+    (counter ``search.target_sums``)."""
+    from kmerseek_tpu_torch.core import search as tsearch
+    from kmerseek_tpu_torch.utils import metrics
+
+    mins, ab, offsets, _q, _v = _corpus(T=600, Q=8)
+    target = _index(mins, ab, offsets)
+    query = _index(mins[: offsets[8]], ab[: offsets[8]], offsets[:9])
+    built = metrics.counters().get("search.target_sums", 0)
+    first = tsearch.manysearch_columns(query, target)
+    second = tsearch.manysearch_columns(query, target)
+    assert metrics.counters().get("search.target_sums", 0) == built + 1
+    assert list(first) == list(second) and len(first["query_name"]) >= 8
+    for k, v in first.items():
+        if isinstance(v, np.ndarray):
+            assert v.dtype == second[k].dtype and np.array_equal(v, second[k]), k
+        else:
+            assert v == second[k], k

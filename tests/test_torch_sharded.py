@@ -61,6 +61,20 @@ def _simulate(mod, target, n_hosts, n_shards, **kw):
     return (names, sizes, weights, md5s), shards, metas, posts
 
 
+@pytest.mark.parametrize("n_hosts,n_shards", LAYOUTS)
+def test_sharded_target_sums_equal_the_index(corpus, n_hosts, n_shards):
+    """Every shard built from a ``ProteomeIndex`` carries the index's own
+    ``t_sizes`` / ``t_weight``: the two kinds of target expose the same
+    per-target sums to the column assembly."""
+    _tfa, pt, *_ = corpus
+    _meta, shards, _m, _p = _simulate(tsh, pt, n_hosts, n_shards, device="cpu")
+    for sh in shards:
+        assert sh.t_sizes.dtype == pt.t_sizes.dtype == np.int64
+        assert np.array_equal(sh.t_sizes, pt.t_sizes)
+        assert sh.t_weight.dtype == pt.t_weight.dtype == np.int64
+        assert np.array_equal(sh.t_weight, pt.t_weight)
+
+
 def _same_payload(a: dict, b: dict):
     assert sorted(a) == sorted(b)
     for k in a:
