@@ -48,7 +48,7 @@ from ..utils.device import resolve_device
 from ..utils.metrics import count, note_sync, span
 from .alphabet import validate_resolve_batch
 from .fasta import iter_record_batches, pack_fixed_grid, prefetch
-from .signature import Signature
+from .signature import Signature, sourmash_md5s
 
 INDEX_FORMAT_VERSION = 2
 INDEX_SUFFIX = "kmerseek.ksx"
@@ -488,19 +488,21 @@ class ProteomeIndex:
         return self._combined
 
     def md5_for(self, i: int) -> str:
-        """Sourmash md5 of signature ``i`` (cached; persisted in ``.ksx``)."""
+        """Sourmash md5 of signature ``i`` (see ``md5s``)."""
+        return self.md5s[i]
+
+    @property
+    def md5s(self) -> List[str]:
+        """Sourmash md5 of every signature, computed together on first use
+        (``sourmash_md5s``) and cached; persisted in ``.ksx``."""
         if self._md5s is None:
-            self._md5s = [None] * len(self)
-        if self._md5s[i] is None:
-            self._md5s[i] = self.signature(i).md5sum
-        return self._md5s[i]
+            self._md5s = sourmash_md5s(self.mins, self.offsets, self.config.ksize)
+        return self._md5s
 
     @property
     def md5_array(self) -> np.ndarray:
         if self._md5_array is None:
-            self._md5_array = np.array(
-                [self.md5_for(i) for i in range(len(self))], object
-            )
+            self._md5_array = np.array(self.md5s, object)
         return self._md5_array
 
     @property
@@ -666,7 +668,9 @@ class ProteomeIndex:
         """Write the index as a ``.ksx`` directory (format 2). Spans:
         ``index.save`` around it, with ``index.postings`` (the posting
         build, when the postings are not built yet) and ``index.members``
-        (checksums, the ``.npy`` members, metadata, manifest and hints)."""
+        (checksums, the ``.npy`` members, metadata, manifest and hints;
+        inside it ``index.metadata``, the names and md5s of
+        ``metadata.json``)."""
         with span("index.save"):
             os.makedirs(path, exist_ok=True)
             with span("index.postings"):
@@ -697,19 +701,20 @@ class ProteomeIndex:
                 "inv_g64": int(inv.g64().sum(dtype=np.uint64)),
                 "inv_ab": int(inv.ab.sum(dtype=np.int64)),
             }
-            meta = {
-                "format_version": INDEX_FORMAT_VERSION,
-                "ksize": self.config.ksize,
-                "scaled": self.config.scaled,
-                "moltype": self.config.moltype,
-                "n_signatures": len(self),
-                "source_fasta": self.source_fasta,
-                "names": self.names,
-                "has_sequences": self.sequences is not None,
-                "md5s": [self.md5_for(i) for i in range(len(self))],
-            }
-            with open(os.path.join(path, "metadata.json"), "w") as f:
-                json.dump(meta, f)
+            with span("index.metadata"):
+                meta = {
+                    "format_version": INDEX_FORMAT_VERSION,
+                    "ksize": self.config.ksize,
+                    "scaled": self.config.scaled,
+                    "moltype": self.config.moltype,
+                    "n_signatures": len(self),
+                    "source_fasta": self.source_fasta,
+                    "names": self.names,
+                    "has_sequences": self.sequences is not None,
+                    "md5s": self.md5s,
+                }
+                with open(os.path.join(path, "metadata.json"), "w") as f:
+                    json.dump(meta, f)
             files = dict(fut.result() for fut in futures)
         manifest = {
             "inverted_shape": [
@@ -754,9 +759,14 @@ class ProteomeIndex:
         """Open a ``.ksx`` directory: format 2 (members mmapped) or
         format 1 (``arrays.npz`` + ``inverted.npz``). Postings that
         disagree with the sketch arrays are dropped with a warning and
-        rebuilt on ``device`` when first used. Span ``index.load``."""
+        rebuilt on ``device`` when first used. Span ``index.load``, with
+        ``index.metadata`` (``metadata.json`` read) inside it and counter
+        ``index.postings_loaded`` (the postings loaded, 0 where they were
+        dropped)."""
         with span("index.load"):
-            return cls._load(path, device)
+            idx = cls._load(path, device)
+            count("index.postings_loaded", 0 if idx._inverted is None else idx._inverted.n_postings)
+            return idx
 
     @classmethod
     def _load(cls, path: str, device) -> "ProteomeIndex":
@@ -765,7 +775,7 @@ class ProteomeIndex:
             from ..utils.errors import NoSavedState
 
             raise NoSavedState(f"no saved index at {path}")
-        with open(meta_path) as f:
+        with span("index.metadata"), open(meta_path) as f:
             meta = json.load(f)
         if meta["format_version"] > INDEX_FORMAT_VERSION:
             raise ValueError(f"index format {meta['format_version']} too new")

@@ -295,7 +295,8 @@ def _join_tuples(query: ProteomeIndex, inv):
 
     One probe of every query hash into ``inv``'s distinct-hash table,
     expanded to one (q_row, target, abundance, q_hash_index) tuple per
-    query-hash/target co-occurrence."""
+    query-hash/target co-occurrence (counter ``search.tuples``: their
+    number, one count a call)."""
     st = _db_hash_stats(inv)
     qm = query.mins
     # one searchsorted into the distinct-hash table; run start and
@@ -307,6 +308,7 @@ def _join_tuples(query: ProteomeIndex, inv):
     cnt = np.where(found, st.df[posc], 0).astype(np.int64)
     lo = np.where(found, st.run_starts[posc], 0)
     total = int(cnt.sum())
+    count("search.tuples", total)
     if total == 0:
         z = np.zeros(0, np.int64)
         return z, z, z, z, posc

@@ -44,6 +44,35 @@ def sourmash_md5(mins: Sequence[int], protein_ksize: int) -> str:
     return hashlib.md5(blob.encode()).hexdigest()
 
 
+def sourmash_md5s(mins: np.ndarray, offsets: np.ndarray, protein_ksize: int) -> List[str]:
+    """``sourmash_md5`` of every signature of CSR arrays (``mins`` with
+    ``offsets``). With the native library, the decimal text of a piece of
+    about 1M mins is made at once (``native.decimal_u64``) and each
+    signature's md5 taken over its slice of it; without it, one
+    ``sourmash_md5`` a signature."""
+    from .. import native
+
+    mins = np.asarray(mins, np.uint64)
+    offsets = np.asarray(offsets, np.int64)
+    if not native.available():
+        return [sourmash_md5(mins[a:b], protein_ksize) for a, b in zip(offsets[:-1], offsets[1:])]
+    prefix = str(minhash_ksize(protein_ksize)).encode()
+    out: List[str] = []
+    s0, n = 0, len(offsets) - 1
+    while s0 < n:
+        base = int(offsets[s0])
+        s1 = min(max(int(np.searchsorted(offsets, base + (1 << 20), "right")) - 1, s0 + 1), n)
+        text, ends = native.decimal_u64(mins[base:offsets[s1]])
+        text = memoryview(text)
+        cuts = np.concatenate([[0], ends])[offsets[s0:s1 + 1] - base].tolist()
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            h = hashlib.md5(prefix)
+            h.update(text[a:b])
+            out.append(h.hexdigest())
+        s0 = s1
+    return out
+
+
 def mins_sum_hex(mins: Sequence[int]) -> str:
     """kmerseek-Rust's 'md5': hex of the wrapping u64 sum of the mins
     (``signature.rs``); not a real md5, kept for oracle parity."""

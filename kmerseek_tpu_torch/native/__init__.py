@@ -4,8 +4,9 @@ port's own copy of the source).
 
 The library provides the host pieces that kmerseek implements in Rust:
 the FASTA parser, the multithreaded CPU sketcher (``--engine native``),
-a stable multithreaded u64 argsort (the host posting build) and the
-search CSV's body from typed columns (``format_csv``).
+a stable multithreaded u64 argsort (the host posting build), the
+search CSV's body from typed columns (``format_csv``) and the decimal
+text of u64 arrays (``decimal_u64``, the sourmash md5s' input).
 
 It is compiled with the C++ compiler (``$CXX``, else ``g++``, ``c++``
 or ``clang++``) at first use into ``kmerseek_tpu_torch/_build/``. The
@@ -186,6 +187,13 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,  # out
         ctypes.c_int64,  # capacity of out
     ]
+    lib.ks_decimal_u64.restype = ctypes.c_int64
+    lib.ks_decimal_u64.argtypes = [
+        ctypes.c_void_p,  # values
+        ctypes.c_int64,  # n
+        ctypes.c_void_p,  # out, 20 bytes a value
+        ctypes.c_void_p,  # end of each value's text
+    ]
 
 
 def available() -> bool:
@@ -351,3 +359,17 @@ def format_csv(columns, n_rows: int) -> str:
     if n < 0:
         raise RuntimeError("ks_format_csv: output bound exceeded")
     return str(memoryview(out)[:n], "utf-8", "surrogatepass")
+
+
+def decimal_u64(values):
+    """The decimal text of every value of the uint64 array ``values``, back
+    to back (the bytes of ``"".join(map(str, values.tolist()))``), as a
+    uint8 array, and the end of each value's text in it (int64)."""
+    import numpy as np
+
+    lib = _require()
+    arr = np.ascontiguousarray(values, np.uint64)
+    out = np.empty(max(20 * len(arr), 1), np.uint8)
+    ends = np.empty(len(arr), np.int64)
+    n = lib.ks_decimal_u64(arr.ctypes.data, len(arr), out.ctypes.data, ends.ctypes.data)
+    return out[:n], ends

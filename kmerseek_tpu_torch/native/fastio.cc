@@ -440,4 +440,16 @@ int64_t ks_format_csv(int64_t n_rows, int32_t n_cols, const int32_t* kinds,
   return p - out;
 }
 
+// Writes the decimal text of each of the `n` values back to back into
+// `out` (room for 20 bytes a value) and the end of each value's text into
+// `ends[i]`. Returns the bytes written.
+int64_t ks_decimal_u64(const uint64_t* values, int64_t n, char* out, int64_t* ends) {
+  char* p = out;
+  for (int64_t i = 0; i < n; i++) {
+    p = std::to_chars(p, p + 20, values[i]).ptr;
+    ends[i] = p - out;
+  }
+  return p - out;
+}
+
 }  // extern "C"
